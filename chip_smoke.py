@@ -7,25 +7,41 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions; the
-   kernels are built with ``nvcc`` from ``niceslam_tpu_torch/csrc`` into
-   ``build/kernels`` and the build time and ``ptxas`` report are printed.
-2. kernels: every kernel of the main path at the main path's shapes against
-   its plain PyTorch version on the same card tensors, with the max error,
-   the median device time (CUDA events), the plain version's time, the time
-   of one PyTorch library call computing the same function, and the bound
-   computed from bytes and operations.
-3. card vs CPU: the port on the card (kernels) against the port on the CPU
-   (plain versions) on a small world with injected pixels: a Gauss-Newton
-   tracking solve and the mapping loss with its gradients.
-4. main path: ``NiceSLAM.step`` of the bench configuration (``bench.py``,
-   strict sync) on the synthetic scene, with the launch counts of every
-   kernel, per-frame seconds, per-frame position errors and the ATE.
+   kernels are built with ``nvcc`` from ``niceslam_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together) into ``build/kernels`` and the
+   build times and ``ptxas`` reports are printed.
+2. kernels: every kernel of both sampler routes (K1, K2 fused; K3, K4, K5
+   packed) at the main path's shapes against its plain PyTorch version on
+   the same card tensors, with the max error, the median device time (CUDA
+   events), the plain version's time, the time of one PyTorch library call
+   computing the same function where there is one, and the bound computed
+   from bytes and operations. The grid gradients of K2 and K5 must not
+   change by a bit when the points come in another order.
+3. card vs CPU, under each route: the port on the card (kernels) against
+   the port on the CPU (plain versions) on a small world with injected
+   pixels: a Gauss-Newton tracking solve and the mapping loss with its
+   gradients.
+4. main path, under each route: ``NiceSLAM.step`` of the bench
+   configuration (``bench.py``, strict sync) on the synthetic scene, first
+   on the fused route, then on the packed route, with the launch counts of
+   every kernel (the route's kernels launched, the other route's not),
+   per-frame seconds, peak device memory, per-frame position errors and the
+   ATE; a lost track (``lost_track``) fails. Frames 0 and 1 of the fused
+   run are run again from a new ``NiceSLAM`` and must give the same grids
+   and poses bit for bit: one seed is one trajectory on the card. On the
+   packed run's frame-0 map both routes' ``sample_grid`` values and grid
+   gradients are compared on all four levels at a mapping batch's points.
+5. mesher: ``extract_mesh`` at resolution 128 (2,097,152 query points) on
+   the packed run's final map under each route, timed once, and one query
+   of the occupancy field per route, the two fields compared, then
+   ``postprocess_mesh`` and ``write_ply`` to a temporary directory.
 
-``--profile`` adds a last phase: two more every_frame groups, the first
-timed, the second under ``torch.profiler``, for the card's busy share and
-the kernels that take its time (slow: the profiler's host side takes
-minutes to digest the ~10^5 kernels of a group). ``--seeds N`` runs the
-main path again for seeds 1 to N-1 and prints the ATE of every seed.
+``--profile`` adds a phase after the fused main path: two more every_frame
+groups, the first timed, the second under ``torch.profiler``, for the
+card's busy share and the kernels that take its time (slow: the profiler's
+host side takes minutes to digest the ~10^5 kernels of a group).
+``--seeds N`` runs the fused main path again for seeds 1 to N-1 and prints
+the ATE of every seed.
 
 It then prints the kernels' JSON line, the card's ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. It needs one CUDA device and the
@@ -38,7 +54,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,13 +73,67 @@ FP32_FLOPS_PER_S = 67e12
 # products and 8 atomic adds for dgrid plus 6 for the dv contraction.
 FWD_OPS, DERIV_OPS, BWD_OPS = 21, 19, 22
 
-# ATE (cm) at which the main path counts as having lost the track: about
-# twice the 14.5 cm the camera travels in the first 8 frames of the bench.
+# The main path counts as having lost the track at an ATE (cm, aligned) of
+# about twice the 14.5 cm the camera travels in the first 8 frames of the
+# bench, or at a raw position error (cm, unaligned) of more than three times
+# that path in any frame: the similarity alignment of the ATE can absorb a
+# drift that has left the scene (96.6 cm raw at 26.9 cm ATE seen on an H100).
 ATE_LOST_CM = 30.0
+RAW_LOST_CM = 45.0
+
+# The kernels of each sampler route, as their wrappers count them.
+ROUTE_KERNELS = {
+    "fused": ("trilerp_fwd", "trilerp_bwd"),
+    "packed": ("corner_table", "gather_rows", "scatter_corners"),
+}
+BACKWARD_KERNELS = ("trilerp_bwd", "scatter_corners")
+
+
+def _launch_tables():
+    from niceslam_tpu_torch.ops import packed_kernels as pk
+    from niceslam_tpu_torch.ops import trilerp_kernels as tk
+
+    return tk.LAUNCHES, pk.LAUNCHES
+
+
+def all_launches() -> dict:
+    return {k: v for table in _launch_tables() for k, v in table.items()}
+
+
+def set_launches(counts: dict):
+    """Set every kernel's launch count (to 0 where ``counts`` has none)."""
+    for table in _launch_tables():
+        for name in table:
+            table[name] = counts.get(name, 0)
+
+
+def check_route_launches(what: str, route: str, launches: dict, forward_only=False):
+    """The route's kernels launched (only its forward ones where nothing is
+    differentiated), no other kernel."""
+    want = [k for k in ROUTE_KERNELS[route]
+            if not (forward_only and k in BACKWARD_KERNELS)]
+    for name, cnt in launches.items():
+        if name in want and cnt <= 0:
+            raise AssertionError(f"{what}: kernel {name} was not launched: {launches}")
+        if name not in want and cnt != 0:
+            raise AssertionError(f"{what}: kernel {name} launched: {launches}")
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def lost_track(ate_cm: float, err_cm) -> str:
+    """Why the track counts as lost (``""`` if it does not): the ATE at or
+    over ``ATE_LOST_CM``, or a frame's raw position error at or over
+    ``RAW_LOST_CM``. A bound for a lost track, not an accuracy check: that
+    is judged over seeds (PERF.md)."""
+    if not ate_cm < ATE_LOST_CM:
+        return f"ATE {ate_cm:.3f} cm >= {ATE_LOST_CM} cm"
+    worst = int(np.argmax(err_cm))
+    if not err_cm[worst] < RAW_LOST_CM:
+        return f"raw position error {err_cm[worst]:.3f} cm at frame {worst} >= {RAW_LOST_CM} cm"
+    return ""
 
 
 def nvidia_smi_line() -> str:
@@ -113,19 +185,39 @@ def check_close(name, got, want, rtol, atol):
         )
 
 
+def check_order_independent(name, got, want):
+    """A grid gradient of the points in another order: the same bits."""
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"{name}: the sum depends on the order of the points "
+            f"(max abs diff {max_err(got, want):.3e})")
+    log(f"kernel {name}: bit-equal with the points permuted")
+
+
 # ----------------------------------------------------------------- phase 1
 def phase_card():
+    from niceslam_tpu_torch.ops import packed_kernels as pk
     from niceslam_tpu_torch.ops import trilerp_kernels as tk
 
     log(f"card: {nvidia_smi_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+
+    def timed_build(src):
+        t0 = time.perf_counter()
+        lib, report = tk.build(src, verbose=True)
+        return lib, report, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib, report = tk.build(verbose=True)
-    log(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    srcs = (tk.CSRC / "trilerp.cu", pk.SRC)
+    with ThreadPoolExecutor(len(srcs)) as ex:
+        built = list(ex.map(timed_build, srcs))
+    log(f"build: {len(srcs)} sources in parallel in {time.perf_counter() - t0:.2f} s")
+    for lib, report, dt in built:
+        log(f"build: {lib.relative_to(ROOT)} in {dt:.2f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -167,9 +259,10 @@ def main_path_grid_shapes(cfg):
 
 
 def phase_kernels(cfg):
-    """Parity, time and bound of K1 and K2 at the main path's shapes."""
+    """Parity, time and bound of K1-K5 at the main path's shapes."""
     import torch.nn.functional as F
 
+    from niceslam_tpu_torch.ops import packed_kernels as pk
     from niceslam_tpu_torch.ops import trilerp_kernels as tk
 
     shapes = main_path_grid_shapes(cfg)
@@ -224,10 +317,14 @@ def phase_kernels(cfg):
                              bound_ms=bms, bound_by=by))
         dgrid, dv = tk.trilerp_bwd(grid, v, g)
         rdgrid, rdv = tk.trilerp_bwd_plain(grid, v, g)
+        perm = torch.randperm(n, device="cuda", generator=gen)
+        pdgrid, _ = tk.trilerp_bwd(grid, v[perm].contiguous(), g[perm].contiguous(),
+                                   need_dv=False)
         torch.cuda.synchronize()
-        # Tolerances: the atomics add in another order than index_add_.
+        # Tolerances: K2 sums in fixed point, index_add_ in fp32.
         check_close(f"trilerp_bwd[{lvl}] dgrid", dgrid, rdgrid, 1e-5, 1e-5)
         check_close(f"trilerp_bwd[{lvl}] dv", dv, rdv, 2e-5, 2e-5)
+        check_order_independent(f"trilerp_bwd[{lvl}] dgrid", pdgrid, dgrid)
         err = max(max_err(dgrid, rdgrid), max_err(dv, rdv))
         ms = device_ms(lambda: tk.trilerp_bwd(grid, v, g))
         plain = device_ms(lambda: tk.trilerp_bwd_plain(grid, v, g), reps=10)
@@ -238,6 +335,9 @@ def phase_kernels(cfg):
         rows.append(dict(name="trilerp_bwd", case=f"{lvl} N={n}", max_abs_err=err,
                          ms=ms, plain_ms=plain, library_ms=libt, bound_ms=bms,
                          bound_by=by))
+        rows += packed_kernel_rows(pk, grid, v, g, perm, lvl)
+    log("library_ms of corner_table: null, no single PyTorch call builds the "
+        "packed table (the plain version is six concatenations)")
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']:<12} {r['case']:<26} max_abs_err {r['max_abs_err']:.3e}  "
@@ -246,15 +346,80 @@ def phase_kernels(cfg):
     return rows
 
 
+def packed_kernel_rows(pk, grid, v, g, perm, lvl):
+    """Parity, time and bound of K3, K4 and K5 on the inputs of K1 and K2:
+    the table of ``grid``, the rows at the starts of ``v``, and the corner
+    cotangents ``w8 (x) g`` scattered back (and again with the points in the
+    order ``perm``)."""
+    from niceslam_tpu_torch.ops.trilinear import packed_starts
+
+    Z, Y, X, C = grid.shape
+    R, n = Z * Y * X, v.shape[0]
+    start, w = packed_starts(v, (Z, Y, X))
+    idx4 = pk.pair_starts(start, Y, X)
+    ct8 = (pk.corner_weights(w[:, 0], w[:, 1], w[:, 2])[:, :, None] * g[:, None, :]).contiguous()
+    # The library yardstick of K5: index_add_ of the 8 corner rows (k order).
+    rows8 = (idx4[:, :, None] + torch.arange(2, device=v.device, dtype=torch.int32)).reshape(-1)
+    ct_flat = ct8.reshape(-1, C)
+    out = []
+
+    table = pk.corner_table(grid)
+    ref = pk.corner_table_plain(grid)
+    torch.cuda.synchronize()
+    if not torch.equal(table, ref):  # a copy: bit-exact
+        raise AssertionError(f"corner_table[{lvl}]: kernel disagrees with its plain "
+                             f"version (max abs err {max_err(table, ref):.3e})")
+    bms, by = bound_ms(4 * (R * C + R * 8 * C), 0)
+    out.append(dict(name="corner_table", case=f"{lvl} R={R}", max_abs_err=max_err(table, ref),
+                    ms=device_ms(lambda: pk.corner_table(grid)),
+                    plain_ms=device_ms(lambda: pk.corner_table_plain(grid), reps=10),
+                    library_ms=None, bound_ms=bms, bound_by=by))
+
+    rows = pk.gather_rows(table, start)
+    ref = pk.gather_rows_plain(table, start)
+    lib = torch.index_select(table, 0, start)
+    torch.cuda.synchronize()
+    if not (torch.equal(rows, ref) and torch.equal(lib, ref)):
+        raise AssertionError(f"gather_rows[{lvl}]: kernel disagrees with its plain "
+                             f"version (max abs err {max_err(rows, ref):.3e})")
+    bms, by = bound_ms(4 * (2 * n * 8 * C + n), 0)
+    out.append(dict(name="gather_rows", case=f"{lvl} N={n}", max_abs_err=max_err(rows, ref),
+                    ms=device_ms(lambda: pk.gather_rows(table, start)),
+                    plain_ms=device_ms(lambda: pk.gather_rows_plain(table, start), reps=10),
+                    library_ms=device_ms(lambda: torch.index_select(table, 0, start)),
+                    bound_ms=bms, bound_by=by))
+
+    def lib_scatter():
+        return torch.zeros((R, C), device=grid.device).index_add_(0, rows8, ct_flat)
+
+    dflat = pk.scatter_corners(idx4, ct8, R)
+    ref = pk.scatter_corners_plain(idx4, ct8, R)
+    pflat = pk.scatter_corners(idx4[perm].contiguous(), ct8[perm].contiguous(), R)
+    torch.cuda.synchronize()
+    # Tolerance: K5 sums in fixed point, index_add_ in fp32.
+    check_close(f"scatter_corners[{lvl}]", dflat, ref, 1e-5, 1e-5)
+    check_order_independent(f"scatter_corners[{lvl}]", pflat, dflat)
+    check_close(f"index_add_[{lvl}] vs plain", lib_scatter(), ref, 1e-5, 1e-5)
+    bms, by = bound_ms(4 * (n * 8 * C + 4 * n + R * C), n * 8 * C)
+    out.append(dict(name="scatter_corners", case=f"{lvl} N={n}",
+                    max_abs_err=max_err(dflat, ref),
+                    ms=device_ms(lambda: pk.scatter_corners(idx4, ct8, R)),
+                    plain_ms=device_ms(lambda: pk.scatter_corners_plain(idx4, ct8, R), reps=10),
+                    library_ms=device_ms(lib_scatter), bound_ms=bms, bound_by=by))
+    return out
+
+
 # ----------------------------------------------------------------- phase 3
-def phase_card_vs_cpu():
-    """The port on the card against the port on the CPU, small world."""
+def phase_card_vs_cpu(route: str):
+    """The port on the card against the port on the CPU, small world, on
+    the sampler route ``route``."""
     from niceslam_tpu_torch.core.pose import tensor_from_camera
     from niceslam_tpu_torch.core.rays import Intrinsics
     from niceslam_tpu_torch.grid.hierarchy import GridConfig, init_grids
     from niceslam_tpu_torch.io.datasets.synthetic import circular_trajectory, render_box_scene
     from niceslam_tpu_torch.models.decoders import DecoderConfig, init_decoders, tree_map
     from niceslam_tpu_torch.models.pretrained import load_decoders_npz
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
     from niceslam_tpu_torch.render.renderer import RenderConfig
     from niceslam_tpu_torch.slam import mapper
     from niceslam_tpu_torch.slam.tracker import TrackConfig, track_frame
@@ -321,14 +486,13 @@ def phase_card_vs_cpu():
                     if v.grad is not None})
         return {k: v.detach().cpu() for k, v in out.items()}
 
-    from niceslam_tpu_torch.ops import trilerp_kernels as tk
-
-    tk.reset_launches()
-    gpu = run("cuda")
-    launched = dict(tk.LAUNCHES)
-    cpu = run("cpu")
-    if not (launched["trilerp_fwd"] > 0 and launched["trilerp_bwd"] > 0):
-        raise AssertionError(f"card run did not launch both kernels: {launched}")
+    with sampler_route(route):
+        set_launches({})
+        gpu = run("cuda")
+        launched = all_launches()
+        cpu = run("cpu")
+    check_route_launches(f"card vs CPU [{route}]", route, launched)
+    log(f"card vs cpu [{route}] launches: {launched}")
     # 1e-4 relative to each quantity's largest entry: fp32 sums and atomics
     # in another order than on the CPU.
     worst = 0.0
@@ -336,9 +500,9 @@ def phase_card_vs_cpu():
         scale = max(float(cpu[k].abs().max()), 1e-12)
         rel = max_err(gpu[k], cpu[k]) / scale
         worst = max(worst, rel)
-        log(f"card vs cpu {k:<18} max rel err {rel:.3e}")
+        log(f"card vs cpu [{route}] {k:<18} max rel err {rel:.3e}")
         if not rel <= 1e-4:
-            raise AssertionError(f"card vs CPU: {k} differs by {rel:.3e} (> 1e-4)")
+            raise AssertionError(f"card vs CPU [{route}]: {k} differs by {rel:.3e} (> 1e-4)")
     moved = float(np.abs(gpu["pose"].numpy() - init).max())
     if not moved > 1e-3:
         raise AssertionError(f"GN solve did not move the pose ({moved:.2e})")
@@ -346,35 +510,62 @@ def phase_card_vs_cpu():
 
 
 # ----------------------------------------------------------------- phase 4
-def phase_main_path(cfg, n_frames: int, seed: int = 0):
+def new_slam(cfg, n_frames: int, seed: int):
+    """A ``NiceSLAM`` on the bench's 36-frame trajectory that runs the first
+    ``n_frames`` of it, on the card (the default device)."""
     from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
-    from niceslam_tpu_torch.ops import trilerp_kernels as tk
     from niceslam_tpu_torch.slam.system import NiceSLAM
 
-    # The bench's 36-frame trajectory; the first n_frames of it are run.
     reader = SyntheticBoxReader(cfg, n_frames=36)
-    frames = [reader[k] for k in range(n_frames)]
-    slam = NiceSLAM(cfg, reader=reader, seed=seed)  # device defaults to cuda
+    slam = NiceSLAM(cfg, reader=reader, seed=seed)
     slam.n_imgs = n_frames
+    return slam, reader
+
+
+def snapshot(slam) -> dict:
+    """The map's grids (copies on the card) and the poses so far."""
+    return dict(grids={lvl: g.detach().clone() for lvl, g in slam.state.grids.items()},
+                poses=np.stack(slam.est_c2w))
+
+
+def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
+                    keep: int = 0):
+    """``NiceSLAM.step`` over ``n_frames`` under ``route``; with ``keep`` the
+    result holds a :func:`snapshot` after frame ``keep - 1``."""
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+
+    slam, reader = new_slam(cfg, n_frames, seed)
+    frames = [reader[k] for k in range(n_frames)]
+    kept = None
+    tag = f"[{route}] seed {seed}"
     torch.cuda.synchronize()
-    tk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    set_launches({})
     dts = []
     for k, frame in enumerate(frames):
         t0 = time.perf_counter()
-        slam.step(frame)
+        with sampler_route(route):
+            slam.step(frame)
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t0)
         ev = [e for e in slam.events if e.get("frame") == k]
         fr = ev[-1]
-        log(f"frame {k}: {dts[-1]:.3f} s (track {fr['dt_track']:.3f} s, map "
+        log(f"{tag} frame {k}: {dts[-1]:.3f} s (track {fr['dt_track']:.3f} s, map "
             f"{fr['dt_map']:.3f} s)  " + " ".join(
                 f"{e['event']}({'coarse' if e.get('coarse') else 'staged'})"
                 for e in ev[:-1]))
-    launches = dict(tk.LAUNCHES)
-    log(f"main-path launches: {launches}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+        if k == 0 and route == "packed":
+            # Not part of the main path: its launches are taken out again.
+            counts = all_launches()
+            compare_routes_on_map(slam, frame, cfg)
+            set_launches(counts)
+        if k == keep - 1:
+            kept = snapshot(slam)
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches()
+    log(f"{tag}: main-path launches: {launches}")
+    log(f"{tag}: peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated)")
+    check_route_launches(f"main path {tag}", route, launches)
     res = slam.result()
     poses = np.stack(res["est_c2w"])
     if not np.isfinite(poses).all():
@@ -388,17 +579,150 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0):
     ate_cm = 100.0 * res["ate_rmse"]
     err_cm = 100.0 * np.linalg.norm(
         poses[:, :3, 3] - np.stack(res["gt_c2w"])[:, :3, 3], axis=1)
-    log(f"seed {seed}: per-frame seconds: {[round(d, 4) for d in dts]}")
-    log(f"seed {seed}: tracked frames/s after frame 0: {(len(dts) - 1) / sum(dts[1:]):.4f}")
-    log(f"seed {seed}: position error per frame (cm): {[round(float(e), 2) for e in err_cm]}")
-    log(f"seed {seed}: ATE RMSE over {n_frames} frames: {ate_cm:.4f} cm")
-    # A lost track, not an accuracy check: one seed's ATE over these frames
-    # changes from run to run (the grid gradient's atomics), and single runs
-    # on an H100 ranged from about 1 to 17 cm (PERF.md); accuracy is judged
-    # over seeds, against the tripwire's bounds, by tests/test_torch_slam.py.
-    if not ate_cm < ATE_LOST_CM:
-        raise AssertionError(f"ATE {ate_cm:.3f} cm: the track is lost (>= {ATE_LOST_CM} cm)")
-    return launches, slam, reader, ate_cm
+    log(f"{tag}: per-frame seconds: {[round(d, 4) for d in dts]}")
+    log(f"{tag}: tracked frames/s after frame 0: {(len(dts) - 1) / sum(dts[1:]):.4f}")
+    log(f"{tag}: position error per frame (cm): {[round(float(e), 2) for e in err_cm]}")
+    log(f"{tag}: ATE RMSE over {n_frames} frames: {ate_cm:.4f} cm")
+    # Accuracy is judged over seeds, against the tripwire's bounds, by
+    # tests/test_torch_slam.py; here only a lost track fails.
+    lost = lost_track(ate_cm, err_cm)
+    if lost:
+        raise AssertionError(f"{tag}: the track is lost: {lost}")
+    return dict(launches=launches, slam=slam, reader=reader, ate_cm=ate_cm, dts=dts,
+                peak_bytes=peak, kept=kept, seed=seed, route=route, n_frames=n_frames)
+
+
+def phase_repeat(cfg, run: dict, frames: int):
+    """The first ``frames`` frames of ``run`` again, from a new ``NiceSLAM``
+    on the same seed and route: the grids and poses must equal ``run``'s
+    snapshot bit for bit (the grid gradients of K2 and K5 do not depend on
+    the order of their atomics, and nothing else on the path does either)."""
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+
+    slam, reader = new_slam(cfg, run["n_frames"], run["seed"])
+    t0 = time.perf_counter()
+    with sampler_route(run["route"]):
+        for k in range(frames):
+            slam.step(reader[k])
+    torch.cuda.synchronize()
+    got, want = snapshot(slam), run["kept"]
+    diffs = {lvl: max_err(got["grids"][lvl], want["grids"][lvl]) for lvl in want["grids"]}
+    dpose = float(np.abs(got["poses"] - want["poses"]).max())
+    log(f"[{run['route']}] seed {run['seed']} frames 0-{frames - 1} again "
+        f"({time.perf_counter() - t0:.3f} s): max abs diff of the grids {diffs}, "
+        f"of the poses {dpose:.3e}")
+    same = all(torch.equal(got["grids"][lvl], want["grids"][lvl]) for lvl in want["grids"])
+    if not (same and np.array_equal(got["poses"], want["poses"])):
+        raise AssertionError(f"[{run['route']}] seed {run['seed']}: a second run of frames "
+                             f"0-{frames - 1} differs from the first")
+
+
+def compare_routes_on_map(slam, frame, cfg):
+    """Both routes' ``sample_grid`` values and grid gradients on every level
+    of the current map, at the points of one mapping batch (pixels of
+    ``frame`` at its estimated pose, stratified + surface samples)."""
+    from niceslam_tpu_torch.core import rays, sampling
+    from niceslam_tpu_torch.ops.trilinear import sample_grid, sampler_route
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    color = torch.as_tensor(frame.color, device="cuda")
+    depth = torch.as_tensor(frame.depth, device="cuda")
+    c2w = torch.as_tensor(slam.est_c2w[-1], device="cuda")
+    i, j = rays.draw_pixels(gen, slam.intr, cfg.mapping.pixels)
+    rb = rays.sample_rays(slam.intr, c2w, depth, color, i, j)
+    near, far = rays.near_far_from_bound(
+        rb.rays_o, rb.rays_d, slam.scene_bound, rb.gt_depth, cfg.rendering.N_samples)
+    z = sampling.merge_z_vals(
+        sampling.stratified_z_vals(near, far, cfg.rendering.N_samples),
+        sampling.surface_z_vals(rb.gt_depth, cfg.rendering.N_surface,
+                                cfg.rendering.surface_band))
+    pts = sampling.points_along_rays(rb.rays_o, rb.rays_d, z).reshape(-1, 3).contiguous()
+    for lvl, grid in slam.state.grids.items():
+        gout = torch.randn((pts.shape[0], grid.shape[-1]), device="cuda", generator=gen)
+        got = {}
+        for route in ("fused", "packed"):
+            g = grid.detach().clone().requires_grad_(True)
+            with sampler_route(route):
+                val = sample_grid(g, pts, slam.bounds[lvl])
+            (val * gout).sum().backward()
+            got[route] = (val.detach(), g.grad)
+        torch.cuda.synchronize()
+        # Values 1e-5: the lerps round alike. Grid gradients 1e-5 of their
+        # largest entry: K2 and K5 round each of up to thousands of terms per
+        # voxel to fixed-point steps of their own (each has its own bound).
+        check_close(f"routes[{lvl}] values", got["packed"][0], got["fused"][0], 1e-5, 1e-5)
+        diff = max_err(got["packed"][1], got["fused"][1])
+        scale = max(1.0, float(got["fused"][1].abs().max()))
+        log(f"routes on frame-0 map [{lvl} {tuple(grid.shape)}] at {pts.shape[0]} points: "
+            f"max abs diff values {max_err(got['packed'][0], got['fused'][0]):.3e}, "
+            f"grid grad {diff:.3e} (largest entry {scale:.3e})")
+        if not diff <= 1e-5 * scale:
+            raise AssertionError(f"routes[{lvl}]: grid gradients differ by {diff:.3e}")
+
+
+# ----------------------------------------------------------------- phase 5
+def phase_mesher(slam, cfg, resolution: int = 128):
+    """``extract_mesh`` of the final map under each route, timed once, and
+    the occupancy field of one query per route, the two fields compared;
+    ``postprocess_mesh`` and ``write_ply`` of the packed mesh."""
+    from niceslam_tpu_torch.eval import mesher
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+
+    st = slam.state
+    args = (st.decoders, st.grids, slam.bounds, slam.scene_bound)
+    fields, meshes = {}, {}
+    for route in ("fused", "packed"):
+        with sampler_route(route):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            set_launches({})
+            t0 = time.perf_counter()
+            occ, _ = mesher.query_occupancy_grid(*args, resolution=resolution)
+            t_query = time.perf_counter() - t0
+            launches = all_launches()
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            meshes[route] = mesher.extract_mesh(
+                *args, resolution=resolution, level=cfg.meshing.level_set)
+            t_all = time.perf_counter() - t0
+        check_route_launches(f"mesher [{route}]", route, launches, forward_only=True)
+        if not np.isfinite(occ).all():
+            raise AssertionError(f"mesher [{route}]: non-finite occupancy")
+        verts, faces, _ = meshes[route]
+        if not (len(verts) > 0 and len(faces) > 0):
+            raise AssertionError(f"mesher [{route}]: empty mesh")
+        fields[route] = occ
+        log(f"mesher [{route}]: {occ.size} query points in {-(-occ.size // 65536)} chunks: "
+            f"query {t_query:.3f} s (launches {launches}, peak device memory "
+            f"{peak / 2**20:.1f} MiB); extract_mesh {t_all:.3f} s, of which "
+            f"{t_all - t_query:.3f} s past the query (marching tetrahedra on the host, "
+            f"vertex colors): {len(verts)} verts, {len(faces)} faces")
+    # Tolerance: 1e-4 of the field's scale. The routes' features differ by
+    # rounding (K1 fuses the lerp into FMAs, the packed lerp runs op by op)
+    # and the decoders carry that to the occupancy.
+    diff = float(np.abs(fields["packed"] - fields["fused"]).max())
+    scale = max(1.0, float(np.abs(fields["fused"]).max()))
+    log(f"mesher: fields of the two routes: max abs diff {diff:.3e} "
+        f"(field scale {scale:.3f}, tolerance {1e-4 * scale:.3e})")
+    if not diff <= 1e-4 * scale:
+        raise AssertionError(f"mesher: the routes' fields differ by {diff:.3e}")
+    # The cleanup of the JAX package's mesher, copied: its frustum test
+    # takes camera z forward while the poses look along -z (ROADMAP, queue
+    # 3), so it may cull what the cameras saw. Both meshes are written.
+    verts, faces, colors = meshes["packed"]
+    t0 = time.perf_counter()
+    clean = mesher.postprocess_mesh(
+        verts, faces, colors, cfg.meshing, poses_c2w=np.stack(slam.est_c2w), intr=slam.intr)
+    log(f"mesher: postprocess_mesh (clean_mesh={cfg.meshing.clean_mesh}) in "
+        f"{time.perf_counter() - t0:.3f} s: {len(verts)} -> {len(clean[0])} verts, "
+        f"{len(faces)} -> {len(clean[1])} faces")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mesh in (("extracted", meshes["packed"]), ("postprocessed", clean)):
+            path = os.path.join(tmp, f"{name}.ply")
+            t0 = time.perf_counter()
+            mesher.write_ply(path, *mesh)
+            log(f"mesher: write_ply of the {name} mesh: {os.path.getsize(path)} bytes "
+                f"in {time.perf_counter() - t0:.3f} s")
 
 
 # ------------------------------------------------------- optional profile
@@ -464,32 +788,50 @@ def main():
     t_all = time.perf_counter()
     phase_card()
     rows = phase_kernels(cfg)
-    phase_card_vs_cpu()
-    launches, slam, reader, ate0 = phase_main_path(cfg, args.frames)
+    for route in ROUTE_KERNELS:
+        phase_card_vs_cpu(route)
+    repeat = min(2, args.frames)
+    runs = {"fused": phase_main_path(cfg, args.frames, keep=repeat)}
+    phase_repeat(cfg, runs["fused"], repeat)
     if args.profile:
-        phase_profile(slam, reader, cfg.mapping.every_frame)
-    del slam
-    ates = [ate0] + [phase_main_path(cfg, args.frames, seed)[3]
-                     for seed in range(1, args.seeds)]
-    log(f"ATE per seed (cm): {[round(a, 4) for a in ates]}, mean {np.mean(ates):.4f}")
+        phase_profile(runs["fused"]["slam"], runs["fused"]["reader"], cfg.mapping.every_frame)
+    del runs["fused"]["slam"]  # the packed run's peak memory is its own
+    runs["packed"] = phase_main_path(cfg, args.frames, route="packed")
+    for route, run in runs.items():
+        log(f"routes: [{route}] frame seconds {[round(d, 4) for d in run['dts']]}, "
+            f"after frame 0 {sum(run['dts'][1:]):.3f} s, peak device memory "
+            f"{run['peak_bytes'] / 2**20:.1f} MiB, ATE {run['ate_cm']:.4f} cm")
+    t0 = time.perf_counter()
+    phase_mesher(runs["packed"]["slam"], cfg)
+    log(f"mesher phase: {time.perf_counter() - t0:.1f} s")
+    del runs["packed"]["slam"]
+    ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
+                                        for seed in range(1, args.seeds)]
+    log(f"ATE per seed (cm), fused route: {[round(a, 4) for a in ates]}, "
+        f"mean {np.mean(ates):.4f}")
 
-    src = "niceslam_tpu_torch/csrc/trilerp.cu"
-    replaces = {
-        "trilerp_fwd": "niceslam_tpu/ops/pallas_trilerp.py:206",
-        "trilerp_bwd": "niceslam_tpu/ops/pallas_trilerp.py:394",
+    sources = {
+        "fused": "niceslam_tpu_torch/csrc/trilerp.cu",
+        "packed": "niceslam_tpu_torch/csrc/packed_table.cu",
     }
+    # The pallas_call of each TPU kernel in niceslam_tpu/ops/pallas_trilerp.py.
+    pallas_call_line = {"trilerp_fwd": 244, "trilerp_bwd": 413, "corner_table": 128,
+                        "gather_rows": 163, "scatter_corners": 306}
     # One entry per kernel at its largest main-path call (the mapping batch
-    # on the fine grid; K1 without its derivative output).
+    # on the fine grid; K1 without its derivative output), with its launches
+    # on its own route's main path.
     kernels = []
-    for name in ("trilerp_fwd", "trilerp_bwd"):
-        r = next(r for r in rows if r["name"] == name and r["case"].startswith("fine")
-                 and "deriv=1" not in r["case"])
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-        })
+    for route, names in ROUTE_KERNELS.items():
+        for name in names:
+            r = next(r for r in rows if r["name"] == name and r["case"].startswith("fine")
+                     and "deriv=1" not in r["case"])
+            kernels.append({
+                "name": name, "route": "cuda", "source": sources[route],
+                "replaces": f"niceslam_tpu/ops/pallas_trilerp.py:{pallas_call_line[name]}",
+                "launches": runs[route]["launches"][name], "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
     log(f"total seconds: {time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

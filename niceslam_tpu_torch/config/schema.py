@@ -134,6 +134,23 @@ class GridLenConfig:
 
 
 @dataclass(frozen=True)
+class MeshingConfig:
+    """Offline mesher options (``eval/mesher.py``): the isosurface level and
+    the cleanup of ``postprocess_mesh``. The JAX schema's options that no
+    code of this package reads are left out until their code is ported."""
+
+    level_set: float = 0.0
+    # Cull mesh geometry never observed by the trajectory (project every
+    # vertex into each camera; keep faces with a frustum-visible vertex).
+    clean_mesh: bool = True
+    # Additionally require vertices to pass the per-view depth test
+    # (not behind the observed surface by > its depth x (scale - 1)).
+    depth_test: bool = False
+    clean_mesh_bound_scale: float = 1.02
+    get_largest_components: bool = False
+
+
+@dataclass(frozen=True)
 class SLAMConfig:
     """Top-level system config. Only ``sync_method="strict"`` on one
     device is implemented by this package's driver."""
@@ -157,5 +174,6 @@ class SLAMConfig:
     tracking: TrackingConfig = TrackingConfig()
     mapping: MappingConfig = MappingConfig()
     rendering: RenderingConfig = RenderingConfig()
+    meshing: MeshingConfig = MeshingConfig()
     pretrained_coarse: str = ""
     pretrained_middle_fine: str = ""

@@ -11,6 +11,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import DEFAULT_DEVICE
+
 
 class Intrinsics(NamedTuple):
     """Pinhole intrinsics (plain python numbers)."""
@@ -47,9 +49,12 @@ def draw_pixels(
     n: int,
     edge_h: int = 0,
     edge_w: int = 0,
-    device="cpu",
+    device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Uniform pixel columns ``i`` and rows ``j`` inside the edge crop."""
+    """Uniform pixel columns ``i`` and rows ``j`` inside the edge crop, on
+    ``device``: by default the generator's, or ``DEFAULT_DEVICE`` without one."""
+    if device is None:
+        device = gen.device if gen is not None else DEFAULT_DEVICE
     j = torch.randint(edge_h, intr.H - edge_h, (n,), generator=gen, device=device)
     i = torch.randint(edge_w, intr.W - edge_w, (n,), generator=gen, device=device)
     return i, j

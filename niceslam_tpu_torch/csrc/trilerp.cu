@@ -28,22 +28,26 @@
 // far below the fp32 peak. It is bound by memory, not arithmetic.
 //
 // K2 trilerp_bwd replaces trilerp_bwd_pallas / _trilerp_bwd_kernel
-// (pallas_trilerp.py:334-438). It writes dgrid [R, C] (zeroed by the caller)
-// by scatter-adding w8 (x) g with fp32 atomicAdd, and dv [N, 3] by reducing
-// the axial differences times g over C with warp shuffles. The TPU kernel
-// relied on grid steps running in order for a safe `+=`; blocks on the GPU
-// run in no order, hence the atomics. The order of the atomic additions
-// changes from run to run, so dgrid is NOT bit-reproducible across runs
-// (differences are at fp32 rounding level).
+// (pallas_trilerp.py:334-438). It writes dgrid [R, C] by scatter-adding
+// w8 (x) g, and dv [N, 3] by reducing the axial differences times g over C
+// with warp shuffles. The TPU kernel relied on grid steps running in order
+// for a safe `+=`; blocks on the GPU run in no order, hence atomics. They
+// are 64-bit integer atomics on a fixed-point accumulator (fixed_sum.cuh),
+// so dgrid is the same bit for bit whatever order they land in: a bound
+// pass over |w8| * |g| first, the scatter, then a pass that converts the
+// accumulator into dgrid.
 // Bound (fine level, N = 48,000): reads the grid (6.2 MB), coordinates and
 // g (6.1 MB), writes dgrid (6.2 MB) and dv; ~19 MB at 3.35 TB/s = ~6 us.
-// The 8 atomics per point and channel go to L2, where the dgrid rows live.
+// The 8 atomics per point and channel go to L2, where the accumulator
+// (12.4 MB) lives.
 //
 // Either output of K2 may be skipped by passing a null pointer; K1 skips the
 // derivative the same way. Each entry point returns cudaGetLastError() after
-// the launch; launches go on the caller's stream and never synchronize.
+// its launches; launches go on the caller's stream and never synchronize.
 
 #include <cuda_runtime.h>
+
+#include "fixed_sum.cuh"
 
 namespace {
 
@@ -134,9 +138,34 @@ __global__ void __launch_bounds__(kThreads) trilerp_fwd_kernel(
   }
 }
 
+// The bound pass of dgrid: max over points and channels of
+// max|pz| * max|py| * max|px| * |g|, which bounds every |w8[k] * g| the
+// scatter adds (a weight leaves [0, 1] where a point lies outside the grid).
+// Rounding is monotonic, so the float products keep the bound.
+__global__ void __launch_bounds__(fixed_sum::kBoundThreads) trilerp_bwd_bound_kernel(
+    const float* __restrict__ v, const float* __restrict__ gout,
+    unsigned int* slot, int N, int Z, int Y, int X, int C) {
+  float m = 0.f;
+  bool finite = true;
+  const long long total = (long long)N * C;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < total; t += stride) {
+    const long long n = t / C;
+    const PointCorners p = point_corners(v, n, Z, Y, X);
+    const float wmax = fmaxf(fabsf(1 - p.wz), fabsf(p.wz)) *
+                       fmaxf(fabsf(1 - p.wy), fabsf(p.wy)) *
+                       fmaxf(fabsf(1 - p.wx), fabsf(p.wx));
+    const float a = wmax * fabsf(__ldg(gout + t));
+    finite &= a <= fixed_sum::kFloatMax;
+    m = fmaxf(m, a);
+  }
+  fixed_sum::block_max_into(m, finite, slot);
+}
+
 __global__ void __launch_bounds__(kThreads) trilerp_bwd_kernel(
     const float* __restrict__ grid, const float* __restrict__ v,
-    const float* __restrict__ gout, float* __restrict__ dgrid,
+    const float* __restrict__ gout, unsigned long long* __restrict__ acc,
     float* __restrict__ dv, int N, int Z, int Y, int X, int C) {
   const long long n =
       (long long)blockIdx.x * kPointsPerBlock + (threadIdx.x >> 5);
@@ -148,15 +177,23 @@ __global__ void __launch_bounds__(kThreads) trilerp_bwd_kernel(
   const float pz[2] = {1 - wz, wz};
   const float py[2] = {1 - wy, wy};
   const float px[2] = {1 - wx, wx};
+  // The accumulator's two slots follow its R*C entries.
+  unsigned int* slot =
+      acc != nullptr
+          ? reinterpret_cast<unsigned int*>(acc + (long long)Z * Y * X * C)
+          : nullptr;
+  const double scale =
+      acc != nullptr ? fixed_sum::scale_of(slot, 8.0 * N) : 0.0;
   float az = 0.f, ay = 0.f, ax = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float g = __ldg(gout + n * C + c);
-    if (dgrid != nullptr) {
+    if (acc != nullptr) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int z1 = k >> 2, y1 = (k >> 1) & 1, x1 = k & 1;
         const long long row = p.r000 + z1 * p.sz + y1 * p.sy + x1;
-        atomicAdd(dgrid + row * C + c, pz[z1] * py[y1] * px[x1] * g);
+        fixed_sum::add(acc + row * C + c, pz[z1] * py[y1] * px[x1] * g,
+                       scale, slot);
       }
     }
     if (dv != nullptr) {
@@ -203,12 +240,23 @@ int trilerp_fwd(const float* grid, const float* v, float* out, float* dout,
   return (int)cudaGetLastError();
 }
 
+// `acc` (int64, R*C entries and then the two slots, all zero) is the
+// fixed-point accumulator of dgrid; both are null when dgrid is skipped.
 int trilerp_bwd(const float* grid, const float* v, const float* gout,
-                float* dgrid, float* dv, int N, int Z, int Y, int X, int C,
-                void* stream) {
+                unsigned long long* acc, float* dgrid, float* dv, int N, int Z,
+                int Y, int X, int C, void* stream) {
   if (N <= 0) return 0;
-  trilerp_bwd_kernel<<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
-      grid, v, gout, dgrid, dv, N, Z, Y, X, C);
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long entries = (long long)Z * Y * X * C;
+  if (dgrid != nullptr) {
+    trilerp_bwd_bound_kernel<<<fixed_sum::blocks((long long)N * C,
+                                                 fixed_sum::kBoundBlocks),
+                               fixed_sum::kBoundThreads, 0, s>>>(
+        v, gout, reinterpret_cast<unsigned int*>(acc + entries), N, Z, Y, X, C);
+  }
+  trilerp_bwd_kernel<<<blocks_for(N), kThreads, 0, s>>>(
+      grid, v, gout, dgrid != nullptr ? acc : nullptr, dv, N, Z, Y, X, C);
+  if (dgrid != nullptr) fixed_sum::finish(acc, dgrid, entries, 8.0 * N, s);
   return (int)cudaGetLastError();
 }
 

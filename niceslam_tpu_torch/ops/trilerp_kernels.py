@@ -5,8 +5,9 @@ differentiable op that binds them.
   (``niceslam_tpu/ops/pallas_trilerp.py:180-258``); with ``deriv=True`` it
   also returns the spatial derivative ``dV/dv [N, 3, C]``.
 - ``trilerp_bwd`` (K2) replaces ``trilerp_bwd_pallas``
-  (``pallas_trilerp.py:334-438``): ``dgrid`` by fp32 atomics and ``dv`` by
-  warp reductions.
+  (``pallas_trilerp.py:334-438``): ``dgrid`` by integer atomics on a
+  fixed-point accumulator (``csrc/fixed_sum.cuh``: the same bits whatever
+  order they land in) and ``dv`` by warp reductions.
 - :class:`TrilerpFunction` replaces the ``trilerp_pallas`` custom_vjp
   (``pallas_trilerp.py:460-485``) and adds what JAX's custom_vjp could not
   give: a forward-mode ``jvp`` and a ``vmap`` rule, so ``torch.func.jacfwd``
@@ -18,7 +19,9 @@ version beside it. Nothing falls back from one to the other.
 
 The kernels are built from ``csrc/trilerp.cu`` with ``nvcc`` at first use
 into ``<repo>/build/kernels/`` (one shared library per source digest) and
-bound with ``ctypes``. ``LAUNCHES`` counts each kernel's launches.
+bound with ``ctypes``. :func:`build` and :func:`load_library` serve every
+``csrc/*.cu`` of the package (and the ``csrc/*.cuh`` they include).
+``LAUNCHES`` counts each kernel's launches.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ import torch
 
 LAUNCHES = {"trilerp_fwd": 0, "trilerp_bwd": 0}
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "trilerp.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SRC = CSRC / "trilerp.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,21 +65,24 @@ def find_nvcc() -> str:
             return c
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
-        "the trilinear CUDA kernels cannot be built"
+        "the CUDA kernels cannot be built"
     )
 
 
-def build(verbose: bool = False) -> Tuple[Path, str]:
-    """Compile ``csrc/trilerp.cu`` into ``build/kernels`` if not built yet.
+def build(src: Path = _SRC, verbose: bool = False) -> Tuple[Path, str]:
+    """Compile the CUDA source ``src`` into ``build/kernels`` if not built yet.
 
     Returns ``(library path, compiler output)``. ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory and spills per kernel). Raises
     when nvcc is missing or fails.
     """
+    src = Path(src)
+    headers = sorted(src.parent.glob("*.cuh"))
     digest = hashlib.sha1(
-        _SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(f.read_bytes() for f in [src, *headers])
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
-    lib = BUILD_DIR / f"libtrilerp_{digest}.so"
+    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists() and not verbose:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -83,7 +90,7 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
     cmd = [find_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(_SRC)]
+    cmd += ["-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -94,17 +101,27 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def load_library(src: Path, signatures) -> ctypes.CDLL:
+    """Build ``src`` and bind it: ``signatures`` maps each C entry point to
+    its argument types, as ``ctypes.c_void_p`` (pointers, streams) and
+    ``ctypes.c_int``; every entry point returns an ``int`` error code."""
+    path, _ = build(src)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.trilerp_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.trilerp_fwd.restype = i
-        lib.trilerp_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        lib.trilerp_bwd.restype = i
-        _LIB = lib
+        _LIB = load_library(_SRC, {
+            "trilerp_fwd": [p, p, p, p, i, i, i, i, i, p],
+            "trilerp_bwd": [p, p, p, p, p, p, i, i, i, i, i, p],
+        })
     return _LIB
 
 
@@ -127,6 +144,13 @@ def _check(grid: torch.Tensor, v: torch.Tensor, g: Optional[torch.Tensor] = None
         raise ValueError(f"g must be [N, C], got {tuple(g.shape)}")
     if grid.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {grid.device}")
+
+
+def fixed_accumulator(entries: int, device) -> torch.Tensor:
+    """The zeroed int64 fixed-point accumulator of a K2 or K5 grid gradient
+    of ``entries`` floats, with its two slots (bound, non-finite flag) in
+    one more int64 at the end (``csrc/fixed_sum.cuh``)."""
+    return torch.zeros(entries + 1, dtype=torch.int64, device=device)
 
 
 def _launch_check(rc: int, name: str):
@@ -239,13 +263,18 @@ def trilerp_bwd(
         return trilerp_bwd_plain(grid, v, g, need_dgrid, need_dv)
     Z, Y, X, C = grid.shape
     N = v.shape[0]
-    dgrid = torch.zeros_like(grid) if need_dgrid else None
+    if N == 0:
+        return (torch.zeros_like(grid) if need_dgrid else None,
+                v.new_empty((0, 3)) if need_dv else None)
+    dgrid = torch.empty_like(grid) if need_dgrid else None
+    acc = fixed_accumulator(grid.numel(), grid.device) if need_dgrid else None
     dv = torch.empty((N, 3), dtype=v.dtype, device=v.device) if need_dv else None
-    if N == 0 or not (need_dgrid or need_dv):
+    if not (need_dgrid or need_dv):
         return dgrid, dv
     with torch.cuda.device(grid.device):
         rc = _lib().trilerp_bwd(
             grid.data_ptr(), v.data_ptr(), g.data_ptr(),
+            acc.data_ptr() if need_dgrid else None,
             dgrid.data_ptr() if need_dgrid else None,
             dv.data_ptr() if need_dv else None, N, Z, Y, X, C,
             torch.cuda.current_stream().cuda_stream,

@@ -124,6 +124,27 @@ def test_pixel_dirs_and_sample_rays():
     _close(b.gt_color, color[j, i])
 
 
+def test_draw_pixels_follows_the_generator_device(monkeypatch):
+    """Without a device argument the pixels land on the generator's device,
+    and without a generator on the port's default device (never the CPU
+    unless asked)."""
+    intr = rays.Intrinsics(H=48, W=64, fx=40.0, fy=40.0, cx=32.0, cy=24.0)
+    i, j = rays.draw_pixels(torch.Generator().manual_seed(0), intr, 50, 4, 5)
+    assert i.device.type == "cpu" and j.device.type == "cpu"
+    assert int(j.min()) >= 4 and int(j.max()) < 44 and int(i.min()) >= 5 and int(i.max()) < 59
+    want = rays.draw_pixels(torch.Generator().manual_seed(0), intr, 50, 4, 5, device="cpu")
+    assert torch.equal(i, want[0]) and torch.equal(j, want[1])
+    seen = []
+
+    def fake_randint(lo, hi, size, generator=None, device=None):
+        seen.append(device)
+        return torch.zeros(size, dtype=torch.long)
+
+    monkeypatch.setattr(rays.torch, "randint", fake_randint)
+    rays.draw_pixels(None, intr, 3)
+    assert seen == [rays.DEFAULT_DEVICE] * 2 and rays.DEFAULT_DEVICE == "cuda"
+
+
 @pytest.mark.parametrize("with_depth", [True, False])
 def test_near_far_from_bound(with_depth):
     rng = np.random.default_rng(6)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from niceslam_tpu.ops.pallas_trilerp import trilerp_vmem
+from niceslam_tpu.ops.pallas_trilerp import _corner_indices, trilerp_bwd_pallas, trilerp_vmem
 from niceslam_tpu.ops.trilinear import sample_grid as jax_sample_grid
 from niceslam_tpu.ops.trilinear import voxel_coords as jax_voxel_coords
 from niceslam_tpu_torch.ops import trilerp_kernels as tk
@@ -199,6 +199,26 @@ def test_compute_functions_get_tensors_with_storage(monkeypatch, mode):
         got = torch.func.vmap(lambda x: tk.trilerp(grid, moved(x)))(torch.stack([x0, 2 * x0]))
     assert torch.isfinite(got).all()
     assert seen and set(seen) == {"trilerp_fwd_plain"}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_pallas_trilerp_bwd(shape):
+    """K2's plain version against the Pallas kernel it replaces, in
+    interpret mode, on interior points: ``dgrid`` and ``dw``."""
+    grid = _grid(shape, 17)
+    pts = _pts_interior(257, 18, shape)
+    g = np.random.default_rng(19).normal(size=(257, shape[3])).astype(np.float32)
+    vz, vy, vx = jax_voxel_coords(jnp.asarray(pts), jnp.asarray(BOUND), shape[:3])
+    idx, idx4, w = _corner_indices(shape[:3], vz, vy, vx)
+    want_dgrid, want_dw = trilerp_bwd_pallas(
+        jnp.asarray(grid).reshape(-1, shape[3]), idx, idx4, w, jnp.asarray(g),
+        tn=128, interpret=True,
+    )
+    v = voxel_coords(_t(pts), _t(BOUND), shape[:3]).contiguous()
+    dgrid, dv = tk.trilerp_bwd_plain(_t(grid), v, _t(g))
+    np.testing.assert_allclose(
+        dgrid.numpy().reshape(-1, shape[3]), np.asarray(want_dgrid), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(want_dw), rtol=2e-5, atol=2e-5)
 
 
 def test_plain_backward_matches_bwd_of_fwd_derivative():
