@@ -15,8 +15,12 @@ prints no result):
    the same card tensors, with the max error, the median device time (CUDA
    events), the plain version's time, the time of one PyTorch library call
    computing the same function where there is one, and the bound computed
-   from bytes and operations. The grid gradients of K2 and K5 must not
-   change by a bit when the points come in another order.
+   from bytes and operations; on uniform random points, and K1, K2 and K5
+   again on the points of one mapping batch (frame 0 of the synthetic
+   scene at its true pose: stratified and surface samples, which crowd
+   into the voxels at the surface). The grid gradients of K2 and K5 must
+   equal their fixed-point model (``ops/fixed_point.py``) bit for bit, also
+   with the points in another order.
 3. card vs CPU, under each route: the port on the card (kernels) against
    the port on the CPU (plain versions) on a small world with injected
    pixels: a Gauss-Newton tracking solve and the mapping loss with its
@@ -258,28 +262,98 @@ def main_path_grid_shapes(cfg):
     }
 
 
-def phase_kernels(cfg):
-    """Parity, time and bound of K1-K5 at the main path's shapes."""
-    import torch.nn.functional as F
+def surface_points(cfg):
+    """Voxel coordinates on the fine and middle grids of the points of one
+    mapping batch: frame 0 of the synthetic scene seen from its true pose,
+    ``cfg.mapping.pixels`` rays of stratified and surface samples."""
+    from niceslam_tpu_torch.ops.trilinear import voxel_coords
 
-    from niceslam_tpu_torch.ops import packed_kernels as pk
-    from niceslam_tpu_torch.ops import trilerp_kernels as tk
+    slam, reader = new_slam(cfg, 1, 0)
+    frame = reader[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pts = mapping_batch_points(slam, frame, torch.as_tensor(frame.gt_c2w, device="cuda"),
+                               cfg, gen)
+    return {lvl: voxel_coords(pts, slam.bounds[lvl], slam.state.grids[lvl].shape[:3]).contiguous()
+            for lvl in ("fine", "middle")}
 
+
+def kernel_cases(cfg):
+    """Phase 2's inputs: per level, a seeded random grid and cotangent at
+    uniform random points (fine: the mapping batch's count of points;
+    middle: the tracking batch's), then the same grid with a new cotangent
+    at the points of :func:`surface_points`."""
     shapes = main_path_grid_shapes(cfg)
-    log(f"main-path grid shapes [Z,Y,X,C]: {shapes}")
     n_track = cfg.tracking.pixels * (cfg.rendering.N_samples + cfg.rendering.N_surface)
     n_map = cfg.mapping.pixels * (cfg.rendering.N_samples + cfg.rendering.N_surface)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
+    cases = []
     for lvl, n in (("fine", n_map), ("middle", n_track)):
         Z, Y, X, C = shapes[lvl]
-        R = Z * Y * X
         grid = torch.randn((Z, Y, X, C), device="cuda", generator=gen) * 0.05
         hi = torch.tensor([Z - 1, Y - 1, X - 1], device="cuda", dtype=torch.float32)
         v = (torch.rand((n, 3), device="cuda", generator=gen) * hi).contiguous()
         g = torch.randn((n, C), device="cuda", generator=gen)
+        cases.append(dict(lvl=lvl, points="uniform", grid=grid, v=v, g=g))
+    for lvl, v in surface_points(cfg).items():
+        grid = next(c["grid"] for c in cases if c["lvl"] == lvl)
+        g = torch.randn((v.shape[0], grid.shape[-1]), device="cuda", generator=gen)
+        cases.append(dict(lvl=lvl, points="surface", grid=grid, v=v, g=g))
+    for c in cases:
+        c["perm"] = torch.randperm(c["v"].shape[0], device="cuda", generator=gen)
+        c["name"] = f"{c['lvl']}{' surface' if c['points'] == 'surface' else ''} N={c['v'].shape[0]}"
+    return cases
+
+
+def bucket_stats(grid, v) -> str:
+    """How the points crowd: distinct start voxels, the largest bucket (K5's
+    pairs per start row are 4x that), and the most corner terms one grid
+    row of K2 sums."""
+    from niceslam_tpu_torch.ops.fixed_point import corner_terms
+
+    rows, _ = corner_terms(grid.shape[:3], v, v[:, :1])
+    per_start = torch.bincount(rows[:, 0])
+    per_row = torch.bincount(rows.reshape(-1))
+    return (f"{int((per_start > 0).sum())} start voxels of {grid[..., 0].numel()}, largest "
+            f"bucket {int(per_start.max())} points, most terms in one row {int(per_row.max())}")
+
+
+def grad_atol(case, ref) -> float:
+    """Absolute tolerance of a grid gradient against its plain version:
+    1e-5, and on a mapping batch's points 1e-5 of the gradient's largest
+    entry: there a grid row sums up to thousands of terms, which the plain
+    version adds in fp32 (``index_add_``, in any order on the card), while
+    the kernels' sum is exact to within their fixed-point step."""
+    if case["points"] == "uniform":
+        return 1e-5
+    return 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+def check_model(name, got, model):
+    """A grid gradient against its fixed-point model: the same bits."""
+    if not torch.equal(got, model):
+        raise AssertionError(f"{name}: differs from the fixed-point model "
+                             f"(max abs diff {max_err(got, model):.3e})")
+
+
+def phase_kernels(cfg):
+    """Parity, time and bound of K1-K5 at the main path's shapes."""
+    import torch.nn.functional as F
+
+    from niceslam_tpu_torch.ops import fixed_point as fp
+    from niceslam_tpu_torch.ops import packed_kernels as pk
+    from niceslam_tpu_torch.ops import trilerp_kernels as tk
+
+    log(f"main-path grid shapes [Z,Y,X,C]: {main_path_grid_shapes(cfg)}")
+    rows = []
+    for case in kernel_cases(cfg):
+        grid, v, g, perm, name = case["grid"], case["v"], case["g"], case["perm"], case["name"]
+        uniform = case["points"] == "uniform"
+        Z, Y, X, C = grid.shape
+        R, n = Z * Y * X, v.shape[0]
+        log(f"kernel inputs [{name}]: {bucket_stats(grid, v)}")
         # The library yardstick: grid_sample on the channel-first volume at
         # normalized xyz coordinates (its border clamp gives equal values).
+        hi = torch.tensor([Z - 1, Y - 1, X - 1], device="cuda", dtype=torch.float32)
         vol = grid.permute(3, 0, 1, 2)[None].contiguous()
         nrm = (v.flip(-1) / hi.flip(-1) * 2 - 1).reshape(1, n, 1, 1, 3).contiguous()
 
@@ -293,38 +367,42 @@ def phase_kernels(cfg):
             return torch.ops.aten.grid_sampler_3d_backward(
                 lib_gout, vol, nrm, 0, 1, True, [True, True])
 
+        def row(kname, **kw):
+            rows.append(dict(name=kname, case=name, points=case["points"], **kw))
+
         torch.cuda.synchronize()
-        for deriv in (False, True):
+        for deriv in ((False, True) if uniform else (False,)):
             out, dout = tk.trilerp_fwd(grid, v, deriv=deriv)
             ref, dref = tk.trilerp_fwd_plain(grid, v, deriv=deriv)
             torch.cuda.synchronize()
-            check_close(f"trilerp_fwd[{lvl}, deriv={deriv}] out", out, ref, 1e-5, 1e-5)
+            check_close(f"trilerp_fwd[{name}, deriv={deriv}] out", out, ref, 1e-5, 1e-5)
             err = max_err(out, ref)
             if deriv:
-                check_close(f"trilerp_fwd[{lvl}] dV/dv", dout, dref, 1e-5, 1e-5)
+                check_close(f"trilerp_fwd[{name}] dV/dv", dout, dref, 1e-5, 1e-5)
                 err = max(err, max_err(dout, dref))
             else:
                 gs_out = lib_fwd()[0, :, :, 0, 0].t()
-                check_close(f"grid_sample[{lvl}] vs plain", gs_out, ref, 1e-4, 1e-5)
+                check_close(f"grid_sample[{name}] vs plain", gs_out, ref, 1e-4, 1e-5)
             ms = device_ms(lambda: tk.trilerp_fwd(grid, v, deriv=deriv))
             plain = device_ms(lambda: tk.trilerp_fwd_plain(grid, v, deriv=deriv), reps=10)
             libt = None if deriv else device_ms(lib_fwd)
             nbytes = 4 * (R * C + 3 * n + n * C + (3 * n * C if deriv else 0))
             nops = n * C * (FWD_OPS + (DERIV_OPS if deriv else 0))
             bms, by = bound_ms(nbytes, nops)
-            rows.append(dict(name="trilerp_fwd", case=f"{lvl} N={n} deriv={int(deriv)}",
-                             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=libt,
-                             bound_ms=bms, bound_by=by))
+            rows.append(dict(name="trilerp_fwd", case=f"{name} deriv={int(deriv)}",
+                             points=case["points"], max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=libt, bound_ms=bms, bound_by=by))
         dgrid, dv = tk.trilerp_bwd(grid, v, g)
         rdgrid, rdv = tk.trilerp_bwd_plain(grid, v, g)
-        perm = torch.randperm(n, device="cuda", generator=gen)
         pdgrid, _ = tk.trilerp_bwd(grid, v[perm].contiguous(), g[perm].contiguous(),
                                    need_dv=False)
+        model = fp.trilerp_bwd_fixed_point(grid, v, g)
         torch.cuda.synchronize()
         # Tolerances: K2 sums in fixed point, index_add_ in fp32.
-        check_close(f"trilerp_bwd[{lvl}] dgrid", dgrid, rdgrid, 1e-5, 1e-5)
-        check_close(f"trilerp_bwd[{lvl}] dv", dv, rdv, 2e-5, 2e-5)
-        check_order_independent(f"trilerp_bwd[{lvl}] dgrid", pdgrid, dgrid)
+        check_close(f"trilerp_bwd[{name}] dgrid", dgrid, rdgrid, 1e-5, grad_atol(case, rdgrid))
+        check_close(f"trilerp_bwd[{name}] dv", dv, rdv, 2e-5, 2e-5)
+        check_model(f"trilerp_bwd[{name}] dgrid", dgrid, model)
+        check_order_independent(f"trilerp_bwd[{name}] dgrid", pdgrid, dgrid)
         err = max(max_err(dgrid, rdgrid), max_err(dv, rdv))
         ms = device_ms(lambda: tk.trilerp_bwd(grid, v, g))
         plain = device_ms(lambda: tk.trilerp_bwd_plain(grid, v, g), reps=10)
@@ -332,27 +410,27 @@ def phase_kernels(cfg):
         nbytes = 4 * (R * C + 3 * n + n * C + R * C + 3 * n)
         nops = n * C * (FWD_OPS + DERIV_OPS + BWD_OPS)
         bms, by = bound_ms(nbytes, nops)
-        rows.append(dict(name="trilerp_bwd", case=f"{lvl} N={n}", max_abs_err=err,
-                         ms=ms, plain_ms=plain, library_ms=libt, bound_ms=bms,
-                         bound_by=by))
-        rows += packed_kernel_rows(pk, grid, v, g, perm, lvl)
+        row("trilerp_bwd", max_abs_err=err, ms=ms, plain_ms=plain, library_ms=libt,
+            bound_ms=bms, bound_by=by)
+        rows += packed_kernel_rows(pk, fp, case, with_table=uniform)
     log("library_ms of corner_table: null, no single PyTorch call builds the "
         "packed table (the plain version is six concatenations)")
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"kernel {r['name']:<12} {r['case']:<26} max_abs_err {r['max_abs_err']:.3e}  "
+        log(f"kernel {r['name']:<15} {r['case']:<34} max_abs_err {r['max_abs_err']:.3e}  "
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms {lib}  "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
     return rows
 
 
-def packed_kernel_rows(pk, grid, v, g, perm, lvl):
-    """Parity, time and bound of K3, K4 and K5 on the inputs of K1 and K2:
-    the table of ``grid``, the rows at the starts of ``v``, and the corner
-    cotangents ``w8 (x) g`` scattered back (and again with the points in the
-    order ``perm``)."""
+def packed_kernel_rows(pk, fp, case, with_table=True):
+    """Parity, time and bound of K5 (and, ``with_table``, of K3 and K4) on
+    the inputs of K1 and K2: the table of the grid, the rows at the starts
+    of the points, and the corner cotangents ``w8 (x) g`` scattered back
+    (and again with the points in the case's order ``perm``)."""
     from niceslam_tpu_torch.ops.trilinear import packed_starts
 
+    grid, v, g, perm, name = case["grid"], case["v"], case["g"], case["perm"], case["name"]
     Z, Y, X, C = grid.shape
     R, n = Z * Y * X, v.shape[0]
     start, w = packed_starts(v, (Z, Y, X))
@@ -363,31 +441,36 @@ def packed_kernel_rows(pk, grid, v, g, perm, lvl):
     ct_flat = ct8.reshape(-1, C)
     out = []
 
-    table = pk.corner_table(grid)
-    ref = pk.corner_table_plain(grid)
-    torch.cuda.synchronize()
-    if not torch.equal(table, ref):  # a copy: bit-exact
-        raise AssertionError(f"corner_table[{lvl}]: kernel disagrees with its plain "
-                             f"version (max abs err {max_err(table, ref):.3e})")
-    bms, by = bound_ms(4 * (R * C + R * 8 * C), 0)
-    out.append(dict(name="corner_table", case=f"{lvl} R={R}", max_abs_err=max_err(table, ref),
-                    ms=device_ms(lambda: pk.corner_table(grid)),
-                    plain_ms=device_ms(lambda: pk.corner_table_plain(grid), reps=10),
-                    library_ms=None, bound_ms=bms, bound_by=by))
+    def row(kname, **kw):
+        out.append(dict(name=kname, case=name, points=case["points"], **kw))
 
-    rows = pk.gather_rows(table, start)
-    ref = pk.gather_rows_plain(table, start)
-    lib = torch.index_select(table, 0, start)
-    torch.cuda.synchronize()
-    if not (torch.equal(rows, ref) and torch.equal(lib, ref)):
-        raise AssertionError(f"gather_rows[{lvl}]: kernel disagrees with its plain "
-                             f"version (max abs err {max_err(rows, ref):.3e})")
-    bms, by = bound_ms(4 * (2 * n * 8 * C + n), 0)
-    out.append(dict(name="gather_rows", case=f"{lvl} N={n}", max_abs_err=max_err(rows, ref),
-                    ms=device_ms(lambda: pk.gather_rows(table, start)),
-                    plain_ms=device_ms(lambda: pk.gather_rows_plain(table, start), reps=10),
-                    library_ms=device_ms(lambda: torch.index_select(table, 0, start)),
-                    bound_ms=bms, bound_by=by))
+    if with_table:
+        table = pk.corner_table(grid)
+        ref = pk.corner_table_plain(grid)
+        torch.cuda.synchronize()
+        if not torch.equal(table, ref):  # a copy: bit-exact
+            raise AssertionError(f"corner_table[{name}]: kernel disagrees with its plain "
+                                 f"version (max abs err {max_err(table, ref):.3e})")
+        bms, by = bound_ms(4 * (R * C + R * 8 * C), 0)
+        row("corner_table", max_abs_err=max_err(table, ref),
+            ms=device_ms(lambda: pk.corner_table(grid)),
+            plain_ms=device_ms(lambda: pk.corner_table_plain(grid), reps=10),
+            library_ms=None, bound_ms=bms, bound_by=by)
+
+        rows = pk.gather_rows(table, start)
+        ref = pk.gather_rows_plain(table, start)
+        lib = torch.index_select(table, 0, start)
+        torch.cuda.synchronize()
+        if not (torch.equal(rows, ref) and torch.equal(lib, ref)):
+            raise AssertionError(f"gather_rows[{name}]: kernel disagrees with its plain "
+                                 f"version (max abs err {max_err(rows, ref):.3e})")
+        bms, by = bound_ms(4 * (2 * n * 8 * C + n), 0)
+        row("gather_rows", max_abs_err=max_err(rows, ref),
+            ms=device_ms(lambda: pk.gather_rows(table, start)),
+            plain_ms=device_ms(lambda: pk.gather_rows_plain(table, start), reps=10),
+            library_ms=device_ms(lambda: torch.index_select(table, 0, start)),
+            bound_ms=bms, bound_by=by)
+        del table, rows, lib
 
     def lib_scatter():
         return torch.zeros((R, C), device=grid.device).index_add_(0, rows8, ct_flat)
@@ -395,17 +478,19 @@ def packed_kernel_rows(pk, grid, v, g, perm, lvl):
     dflat = pk.scatter_corners(idx4, ct8, R)
     ref = pk.scatter_corners_plain(idx4, ct8, R)
     pflat = pk.scatter_corners(idx4[perm].contiguous(), ct8[perm].contiguous(), R)
+    model = fp.scatter_corners_fixed_point(idx4, ct8, R)
     torch.cuda.synchronize()
     # Tolerance: K5 sums in fixed point, index_add_ in fp32.
-    check_close(f"scatter_corners[{lvl}]", dflat, ref, 1e-5, 1e-5)
-    check_order_independent(f"scatter_corners[{lvl}]", pflat, dflat)
-    check_close(f"index_add_[{lvl}] vs plain", lib_scatter(), ref, 1e-5, 1e-5)
+    atol = grad_atol(case, ref)
+    check_close(f"scatter_corners[{name}]", dflat, ref, 1e-5, atol)
+    check_model(f"scatter_corners[{name}]", dflat, model)
+    check_order_independent(f"scatter_corners[{name}]", pflat, dflat)
+    check_close(f"index_add_[{name}] vs plain", lib_scatter(), ref, 1e-5, atol)
     bms, by = bound_ms(4 * (n * 8 * C + 4 * n + R * C), n * 8 * C)
-    out.append(dict(name="scatter_corners", case=f"{lvl} N={n}",
-                    max_abs_err=max_err(dflat, ref),
-                    ms=device_ms(lambda: pk.scatter_corners(idx4, ct8, R)),
-                    plain_ms=device_ms(lambda: pk.scatter_corners_plain(idx4, ct8, R), reps=10),
-                    library_ms=device_ms(lib_scatter), bound_ms=bms, bound_by=by))
+    row("scatter_corners", max_abs_err=max_err(dflat, ref),
+        ms=device_ms(lambda: pk.scatter_corners(idx4, ct8, R)),
+        plain_ms=device_ms(lambda: pk.scatter_corners_plain(idx4, ct8, R), reps=10),
+        library_ms=device_ms(lib_scatter), bound_ms=bms, bound_by=by)
     return out
 
 
@@ -617,17 +702,14 @@ def phase_repeat(cfg, run: dict, frames: int):
                              f"0-{frames - 1} differs from the first")
 
 
-def compare_routes_on_map(slam, frame, cfg):
-    """Both routes' ``sample_grid`` values and grid gradients on every level
-    of the current map, at the points of one mapping batch (pixels of
-    ``frame`` at its estimated pose, stratified + surface samples)."""
+def mapping_batch_points(slam, frame, c2w, cfg, gen):
+    """World points ``[P * (N_samples + N_surface), 3]`` of one mapping
+    batch: ``cfg.mapping.pixels`` pixels of ``frame`` drawn from ``gen``,
+    cast from pose ``c2w``, with stratified and surface samples."""
     from niceslam_tpu_torch.core import rays, sampling
-    from niceslam_tpu_torch.ops.trilinear import sample_grid, sampler_route
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     color = torch.as_tensor(frame.color, device="cuda")
     depth = torch.as_tensor(frame.depth, device="cuda")
-    c2w = torch.as_tensor(slam.est_c2w[-1], device="cuda")
     i, j = rays.draw_pixels(gen, slam.intr, cfg.mapping.pixels)
     rb = rays.sample_rays(slam.intr, c2w, depth, color, i, j)
     near, far = rays.near_far_from_bound(
@@ -636,7 +718,18 @@ def compare_routes_on_map(slam, frame, cfg):
         sampling.stratified_z_vals(near, far, cfg.rendering.N_samples),
         sampling.surface_z_vals(rb.gt_depth, cfg.rendering.N_surface,
                                 cfg.rendering.surface_band))
-    pts = sampling.points_along_rays(rb.rays_o, rb.rays_d, z).reshape(-1, 3).contiguous()
+    return sampling.points_along_rays(rb.rays_o, rb.rays_d, z).reshape(-1, 3).contiguous()
+
+
+def compare_routes_on_map(slam, frame, cfg):
+    """Both routes' ``sample_grid`` values and grid gradients on every level
+    of the current map, at the points of one mapping batch (pixels of
+    ``frame`` at its estimated pose, stratified + surface samples)."""
+    from niceslam_tpu_torch.ops.trilinear import sample_grid, sampler_route
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pts = mapping_batch_points(
+        slam, frame, torch.as_tensor(slam.est_c2w[-1], device="cuda"), cfg, gen)
     for lvl, grid in slam.state.grids.items():
         gout = torch.randn((pts.shape[0], grid.shape[-1]), device="cuda", generator=gen)
         got = {}
@@ -818,13 +911,14 @@ def main():
     pallas_call_line = {"trilerp_fwd": 244, "trilerp_bwd": 413, "corner_table": 128,
                         "gather_rows": 163, "scatter_corners": 306}
     # One entry per kernel at its largest main-path call (the mapping batch
-    # on the fine grid; K1 without its derivative output), with its launches
+    # on the fine grid, uniform points; K1 without its derivative output),
+    # with its launches
     # on its own route's main path.
     kernels = []
     for route, names in ROUTE_KERNELS.items():
         for name in names:
-            r = next(r for r in rows if r["name"] == name and r["case"].startswith("fine")
-                     and "deriv=1" not in r["case"])
+            r = next(r for r in rows if r["name"] == name and r["points"] == "uniform"
+                     and r["case"].startswith("fine") and "deriv=1" not in r["case"])
             kernels.append({
                 "name": name, "route": "cuda", "source": sources[route],
                 "replaces": f"niceslam_tpu/ops/pallas_trilerp.py:{pallas_call_line[name]}",

@@ -92,10 +92,12 @@ def tensor_from_camera(c2w: torch.Tensor) -> torch.Tensor:
 
 
 def to_homogeneous(c2w34: torch.Tensor) -> torch.Tensor:
-    """``[..., 3, 4]`` -> ``[..., 4, 4]`` with the affine bottom row."""
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=c2w34.dtype, device=c2w34.device
-    ).expand(c2w34.shape[:-2] + (1, 4))
+    """``[..., 3, 4]`` -> ``[..., 4, 4]`` with the affine bottom row.
+
+    The row is filled on the tensor's device: a ``torch.tensor`` of it would
+    be a copy from the host that waits for the stream."""
+    bottom = c2w34.new_zeros(c2w34.shape[:-2] + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([c2w34, bottom], dim=-2)
 
 

@@ -36,17 +36,18 @@
 // K5 scatter_corners replaces scatter_corners_pallas / _scatter_pairs_kernel
 // (pallas_trilerp.py:262-320). The TPU kernel accumulated into a VMEM-resident
 // grid with `+=` and relied on its grid steps running in order; blocks on the
-// GPU run in no order, so each thread adds one value with a 64-bit integer
-// atomicAdd into a fixed-point accumulator (fixed_sum.cuh), which the caller
-// zero-fills: the sum is the same bit for bit whatever order the atomics
-// land in, as for K2 in trilerp.cu. A bound pass over |ct8| comes first and
-// a pass that converts the accumulator into `out` last. A pair (rows r and
-// r+1, 2C contiguous floats) receives the 2C contiguous floats
-// ct8[n, 2j:2j+2, :], so the reads and the atomics of a warp fall on
-// contiguous addresses.
+// GPU run in no order. So the sum is a row-owner reduction in int64 fixed
+// point (fixed_sum.cuh), the same bits whatever order the points come in, as
+// for K2 in trilerp.cu: a pass over ct8 (16-byte loads) takes the bound of
+// its values while counting each in-range pair j of point n in the bucket of
+// its start row idx4[n, j]; after the scan and the fill, the owner of grid
+// row r walks bucket r, whose pairs give it ct8[n, 2j, :] (their left row),
+// and bucket r - 1, whose pairs give it ct8[n, 2j + 1, :] (their right row).
 // Bound (fine level, N = 48,000): reads ct8 (49.2 MB) and idx4 (0.8 MB),
-// writes the grid (6.2 MB): 56.1 MB at 3.35 TB/s = 16.8 us. (The bound pass
-// reads ct8 a second time, and the accumulator is twice the grid's size.)
+// writes the grid (6.2 MB): 56.1 MB at 3.35 TB/s = 16.8 us. Beyond it: the
+// bound pass and the owners each read ct8 (the owners one 128-byte row per
+// entry, at C = 32, in the order of the buckets), plus ~1 MB of counts,
+// offsets and ids.
 //
 // Indices are int32 and in range by construction (the route's starts are
 // clipped to dim-2); K4 clamps a row index and K5 skips a pair that would
@@ -104,25 +105,105 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) scatter_corners_kernel(
-    const int* __restrict__ idx4, const float* __restrict__ ct8,
-    unsigned long long* __restrict__ acc, long long total, int R, int C) {
+// The bound of ct8 (max |value|, and whether one is non-finite) over all of
+// it, `n4` float4s then the rest, and the bucket count of every in-range pair.
+__global__ void __launch_bounds__(kThreads) scatter_corners_count_kernel(
+    const int* __restrict__ idx4, const float* __restrict__ ct8, long long n4,
+    long long total, long long pairs, int R, int* __restrict__ counts,
+    unsigned int* slot) {
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const int pair = 2 * C;
-  // The accumulator's two slots follow its R*C entries; at most one value
-  // per point and corner lands on an entry.
-  unsigned int* slot = reinterpret_cast<unsigned int*>(acc + (long long)R * C);
-  const double scale = fixed_sum::scale_of(slot, (double)(total / C));
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long n = t / (4 * pair);
-    const int rem = (int)(t - n * 4 * pair);
-    const int j = rem / pair;  // pair j = z1*2 + y1: corners k = 2j, 2j + 1
-    const int off = rem - j * pair;
-    const int r = __ldg(idx4 + 4 * n + j);
-    if (r < 0 || r > R - 2) continue;
-    fixed_sum::add(acc + (long long)r * C + off, __ldg(ct8 + t), scale, slot);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float m = 0.f;
+  bool finite = true;
+  auto see = [&](float x) {
+    const float a = fabsf(x);
+    finite &= a <= fixed_sum::kFloatMax;  // false for NaN and inf
+    m = fmaxf(m, a);
+  };
+  const float4* c4 = reinterpret_cast<const float4*>(ct8);
+  long long i = tid;
+  for (; i + 3 * stride < n4; i += 4 * stride) {  // four loads in flight
+    float4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = __ldg(c4 + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      see(x[u].x);
+      see(x[u].y);
+      see(x[u].z);
+      see(x[u].w);
+    }
   }
+  for (; i < n4; i += stride) {
+    const float4 x = __ldg(c4 + i);
+    see(x.x);
+    see(x.y);
+    see(x.z);
+    see(x.w);
+  }
+  for (long long t = 4 * n4 + tid; t < total; t += stride) see(__ldg(ct8 + t));
+  // Warp-uniform trips, so that a warp adds its pairs of one start at once.
+  const int lane = threadIdx.x & 31;
+  for (long long p0 = tid - lane; p0 < pairs; p0 += stride) {
+    const long long p = p0 + lane;
+    const int r = p < pairs ? __ldg(idx4 + p) : -1;
+    const bool live = r >= 0 && r <= R - 2;
+    const unsigned int active = __ballot_sync(0xffffffffu, live);
+    if (live) fixed_sum::claim(counts, r, active);
+  }
+  fixed_sum::block_max_into(m, finite, slot);
+}
+
+// The pairs' terms for the row owners (fixed_sum::row_sum_kernel): source
+// s of row r is bucket r - s, and a pair p = n*4 + j there adds its x1 = s
+// row, ct8[n, 2j + s, :] = ct8 row 2p + s, as it is.
+struct PairTerms {
+  static constexpr int kSources = 2;
+  const float* values;  // ct8 [N, 8, C]
+  long long R;
+  int C;
+
+  // Buckets [lo, hi) that source s of rows [r0, r1) can read (bucket R - 1
+  // holds no pair).
+  __device__ __forceinline__ void bucket_range(long long r0, long long r1, int s,
+                                               long long R_, long long* lo,
+                                               long long* hi) const {
+    *lo = r0 - s > 0 ? r0 - s : 0;
+    *hi = r1 - s < R_ ? r1 - s : R_;
+  }
+
+  __device__ __forceinline__ bool source(long long r, int s,
+                                         long long* b) const {
+    const long long key = r - s;
+    if (key < 0 || key > R - 2) return false;
+    *b = key;
+    return true;
+  }
+
+  __device__ __forceinline__ int item(int p, int s, float* w) const {
+    *w = 1.f;
+    return (2 * p + s) * C;
+  }
+
+  __device__ __forceinline__ float term(float, float x) const { return x; }
+};
+
+// The fill: in-range pair p = n*4 + j goes into the bucket of its start
+// row. Blocks from `fill_blocks` on size the row groups instead.
+__global__ void __launch_bounds__(kThreads) scatter_corners_fill_kernel(
+    const int* __restrict__ idx4, const PairTerms terms, const fixed_sum::Scratch sc,
+    long long pairs, long long G, int fill_blocks) {
+  const int R = (int)terms.R;
+  if ((int)blockIdx.x >= fill_blocks) {
+    const long long g = (long long)(blockIdx.x - fill_blocks) * kThreads + threadIdx.x;
+    if (g < G) fixed_sum::size_group(terms, sc, R, g);
+    return;
+  }
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = p < pairs ? __ldg(idx4 + p) : -1;
+  const bool live = r >= 0 && r <= R - 2;
+  const unsigned int active = __ballot_sync(0xffffffffu, live);
+  if (live) fixed_sum::ids_at(sc, r, active) = (int)p;
 }
 
 int blocks_for(long long total) {
@@ -175,20 +256,36 @@ int gather_rows(const float* table, const int* idx, float* out, int N, int R,
   return (int)cudaGetLastError();
 }
 
-// `acc` (int64, R*C entries and then the two slots, all zero) is the
-// fixed-point accumulator of `out`.
-int scatter_corners(const int* idx4, const float* ct8, unsigned long long* acc,
+// int32 words of scatter_corners' scratch for R rows and N points.
+int scatter_corners_scratch(int R, int N, int C) {
+  return (int)fixed_sum::layout(R, 8LL * N, 4LL * N, C).total;
+}
+
+// `scratch` (scatter_corners_scratch ints, any contents) holds the counts,
+// offsets and ids of the sum into `out`.
+int scatter_corners(const int* idx4, const float* ct8, int* scratch,
                     float* out, int N, int R, int C, void* stream) {
   if (N <= 0 || C <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
   const long long total = (long long)N * 8 * C;
-  const long long entries = (long long)R * C;
-  fixed_sum::absmax_kernel<<<fixed_sum::blocks(total, fixed_sum::kBoundBlocks),
-                             fixed_sum::kBoundThreads, 0, s>>>(
-      ct8, total, reinterpret_cast<unsigned int*>(acc + entries));
-  scatter_corners_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-      idx4, ct8, acc, total, R, C);
-  fixed_sum::finish(acc, out, entries, 8.0 * N, s);
+  // Element offsets of ct8 rows, and counts, are int32.
+  if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long pairs = 4LL * N;
+  const fixed_sum::Layout L = fixed_sum::layout(R, 8LL * N, pairs, C);
+  const fixed_sum::Scratch sc = fixed_sum::carve(scratch, L);
+  const cudaError_t e = fixed_sum::zero(scratch, L, s);
+  if (e != cudaSuccess) return (int)e;
+  const long long n4 = aligned16(ct8) ? total / 4 : 0;
+  scatter_corners_count_kernel<<<fixed_sum::blocks(
+                                     n4 > 0 ? n4 : total, fixed_sum::kBoundBlocks),
+                                 kThreads, 0, s>>>(idx4, ct8, n4, total, pairs, R,
+                                                   sc.B, sc.slot);
+  const PairTerms terms{ct8, R, C};
+  fixed_sum::scan(sc, R, s);
+  const int fill_blocks = (int)((pairs + kThreads - 1) / kThreads);
+  scatter_corners_fill_kernel<<<fill_blocks + fixed_sum::group_blocks(L), kThreads, 0, s>>>(
+      idx4, terms, sc, pairs, L.G, fill_blocks);
+  fixed_sum::row_sum(terms, sc, L, 8.0 * N, out, R, C, s);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,10 @@ and the differentiable op that binds them.
 - ``scatter_corners`` (K5) replaces ``scatter_corners_pallas``
   (``pallas_trilerp.py:262-320``): corner cotangents ``ct8 [N, 8, C]`` in
   ``k = z1*4 + y1*2 + x1`` order scatter-added into the canonical grid at the
-  four x-pair starts ``idx4 [N, 4]`` (rows ``r`` and ``r + 1``), by integer
-  atomics on a fixed-point accumulator on the card (``csrc/fixed_sum.cuh``:
-  the same bits whatever order they land in).
+  four x-pair starts ``idx4 [N, 4]`` (rows ``r`` and ``r + 1``), on the card
+  by a row-owner reduction in int64 fixed point (``csrc/fixed_sum.cuh``: the
+  same bits whatever order the points come in; ``ops/fixed_point.py``
+  models it).
 - :class:`PackedRows` is ``(grid, start) -> rows [N, 8C]``: K3 then K4
   forward, K5 backward straight into the grid (no table gradient), a ``jvp``
   and a ``vmap`` rule, so ``torch.func.jacfwd`` goes through it.
@@ -30,7 +31,7 @@ import ctypes
 
 import torch
 
-from .trilerp_kernels import CSRC, _launch_check, fixed_accumulator, load_library
+from .trilerp_kernels import CSRC, _launch_check, load_library
 
 LAUNCHES = {"corner_table": 0, "gather_rows": 0, "scatter_corners": 0}
 
@@ -51,6 +52,7 @@ def _lib():
             "corner_table": [p, p, i, i, i, i, p],
             "gather_rows": [p, p, p, i, i, i, p],
             "scatter_corners": [p, p, p, p, i, i, i, p],
+            "scatter_corners_scratch": [i, i, i],
         })
     return _LIB
 
@@ -174,10 +176,12 @@ def scatter_corners(idx4: torch.Tensor, ct8: torch.Tensor, r_rows: int) -> torch
     if N == 0 or C == 0:
         return torch.zeros((r_rows, C), dtype=ct8.dtype, device=ct8.device)
     out = torch.empty((r_rows, C), dtype=ct8.dtype, device=ct8.device)
-    acc = fixed_accumulator(r_rows * C, ct8.device)
     with torch.cuda.device(ct8.device):
-        rc = _lib().scatter_corners(
-            idx4.data_ptr(), ct8.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        lib = _lib()
+        scratch = torch.empty(lib.scatter_corners_scratch(r_rows, N, C), dtype=torch.int32,
+                              device=ct8.device)
+        rc = lib.scatter_corners(
+            idx4.data_ptr(), ct8.data_ptr(), scratch.data_ptr(), out.data_ptr(),
             N, r_rows, C,
             torch.cuda.current_stream().cuda_stream,
         )

@@ -5,9 +5,10 @@ differentiable op that binds them.
   (``niceslam_tpu/ops/pallas_trilerp.py:180-258``); with ``deriv=True`` it
   also returns the spatial derivative ``dV/dv [N, 3, C]``.
 - ``trilerp_bwd`` (K2) replaces ``trilerp_bwd_pallas``
-  (``pallas_trilerp.py:334-438``): ``dgrid`` by integer atomics on a
-  fixed-point accumulator (``csrc/fixed_sum.cuh``: the same bits whatever
-  order they land in) and ``dv`` by warp reductions.
+  (``pallas_trilerp.py:334-438``): ``dgrid`` by a row-owner reduction in
+  int64 fixed point (``csrc/fixed_sum.cuh``: the same bits whatever order
+  the points come in; ``ops/fixed_point.py`` models it) and ``dv`` by warp
+  reductions.
 - :class:`TrilerpFunction` replaces the ``trilerp_pallas`` custom_vjp
   (``pallas_trilerp.py:460-485``) and adds what JAX's custom_vjp could not
   give: a forward-mode ``jvp`` and a ``vmap`` rule, so ``torch.func.jacfwd``
@@ -121,6 +122,7 @@ def _lib():
         _LIB = load_library(_SRC, {
             "trilerp_fwd": [p, p, p, p, i, i, i, i, i, p],
             "trilerp_bwd": [p, p, p, p, p, p, i, i, i, i, i, p],
+            "trilerp_bwd_scratch": [i, i, i],
         })
     return _LIB
 
@@ -146,13 +148,6 @@ def _check(grid: torch.Tensor, v: torch.Tensor, g: Optional[torch.Tensor] = None
         raise ValueError(f"unsupported device {grid.device}")
 
 
-def fixed_accumulator(entries: int, device) -> torch.Tensor:
-    """The zeroed int64 fixed-point accumulator of a K2 or K5 grid gradient
-    of ``entries`` floats, with its two slots (bound, non-finite flag) in
-    one more int64 at the end (``csrc/fixed_sum.cuh``)."""
-    return torch.zeros(entries + 1, dtype=torch.int64, device=device)
-
-
 def _launch_check(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -173,6 +168,17 @@ def _corner_rows(shape3, v: torch.Tensor):
         [(dz * Y + dy) * X + dx for dz, dy, dx in _CORNERS], device=v.device
     )
     return r000[:, None] + offs, w
+
+
+def corner_terms(shape3, v: torch.Tensor, g: torch.Tensor):
+    """K2's scatter: corner rows ``[N, 8]`` of voxel coords ``v`` and their
+    terms ``[N*8, C]``, ``pz * py * px * g`` in that order of products."""
+    rows, w = _corner_rows(shape3, v)
+    pz = torch.stack([1 - w[:, 0], w[:, 0]], -1)
+    py = torch.stack([1 - w[:, 1], w[:, 1]], -1)
+    px = torch.stack([1 - w[:, 2], w[:, 2]], -1)
+    w8 = (pz[:, :, None, None] * py[:, None, :, None] * px[:, None, None, :]).reshape(-1, 8)
+    return rows, (w8[:, :, None] * g[:, None, :]).reshape(-1, g.shape[-1])
 
 
 def _lerp_parts(grid: torch.Tensor, v: torch.Tensor):
@@ -209,15 +215,8 @@ def trilerp_bwd_plain(
     """Plain PyTorch K2: ``(dgrid [Z,Y,X,C] or None, dv [N, 3] or None)``."""
     dgrid = dv = None
     if need_dgrid:
-        rows, w = _corner_rows(grid.shape[:3], v)
-        pz = torch.stack([1 - w[:, 0], w[:, 0]], -1)
-        py = torch.stack([1 - w[:, 1], w[:, 1]], -1)
-        px = torch.stack([1 - w[:, 2], w[:, 2]], -1)
-        w8 = (
-            pz[:, :, None, None] * py[:, None, :, None] * px[:, None, None, :]
-        ).reshape(-1, 8)
+        rows, ct = corner_terms(grid.shape[:3], v, g)
         C = grid.shape[-1]
-        ct = (w8[:, :, None] * g[:, None, :]).reshape(-1, C)
         dgrid = torch.zeros(
             (grid[..., 0].numel(), C), dtype=grid.dtype, device=grid.device
         ).index_add_(0, rows.reshape(-1), ct).reshape(grid.shape)
@@ -267,14 +266,19 @@ def trilerp_bwd(
         return (torch.zeros_like(grid) if need_dgrid else None,
                 v.new_empty((0, 3)) if need_dv else None)
     dgrid = torch.empty_like(grid) if need_dgrid else None
-    acc = fixed_accumulator(grid.numel(), grid.device) if need_dgrid else None
     dv = torch.empty((N, 3), dtype=v.dtype, device=v.device) if need_dv else None
     if not (need_dgrid or need_dv):
         return dgrid, dv
     with torch.cuda.device(grid.device):
-        rc = _lib().trilerp_bwd(
+        lib = _lib()
+        scratch = (
+            torch.empty(lib.trilerp_bwd_scratch(Z * Y * X, N, C), dtype=torch.int32,
+                        device=grid.device)
+            if need_dgrid else None
+        )
+        rc = lib.trilerp_bwd(
             grid.data_ptr(), v.data_ptr(), g.data_ptr(),
-            acc.data_ptr() if need_dgrid else None,
+            scratch.data_ptr() if need_dgrid else None,
             dgrid.data_ptr() if need_dgrid else None,
             dv.data_ptr() if need_dv else None, N, Z, Y, X, C,
             torch.cuda.current_stream().cuda_stream,

@@ -57,6 +57,20 @@ def draw_track_pixels(
     ]
 
 
+def gn_prior(cfg: TrackConfig, device) -> torch.Tensor:
+    """The GN step's diagonal prior, float32 ``[k, k]``: rotation and
+    translation precisions, then the depth offset's where it is estimated.
+    Filled on ``device``: a ``torch.tensor`` of the values would be a copy
+    from the host that waits for the stream."""
+    parts = [(3, cfg.gn_prior_sigma_r), (3, cfg.gn_prior_sigma_t)]
+    if cfg.gn_depth_offset_sigma > 0:
+        parts.append((1, cfg.gn_depth_offset_sigma))
+    return torch.diag(torch.cat([
+        torch.full((k,), 1.0 / sigma**2, dtype=torch.float32, device=device)
+        for k, sigma in parts
+    ]))
+
+
 def gn_step(
     params, grids, bounds, scene_bound, intr: Intrinsics,
     color: torch.Tensor, depth: torch.Tensor, init: torch.Tensor,
@@ -110,19 +124,17 @@ def gn_step(
     else:
         wc = torch.zeros_like(ec)
 
-    prior_diag = [1.0 / cfg.gn_prior_sigma_r**2] * 3 + [1.0 / cfg.gn_prior_sigma_t**2] * 3
     if cfg.gn_depth_offset_sigma > 0:
         # Scalar depth-offset nuisance: a column of ones on depth rows, zeros
         # on color rows, with a weak zero-mean prior; re-estimated per
         # linearization and never carried.
         Jd = torch.cat([Jd, torch.ones((n, 1), device=dev)], dim=1)
         Jc = torch.cat([Jc, torch.zeros((n * 3, 1), device=dev)], dim=1)
-        prior_diag = prior_diag + [1.0 / cfg.gn_depth_offset_sigma**2]
         x_a = torch.cat([xi, torch.zeros((1,), device=dev)])
     else:
         x_a = xi
-    k = len(prior_diag)
-    prior = torch.diag(torch.tensor(prior_diag, dtype=torch.float32, device=dev))
+    prior = gn_prior(cfg, dev)
+    k = prior.shape[0]
     A = Jd.T @ (wd[:, None] * Jd) + Jc.T @ (wc.reshape(-1, 1) * Jc)
     g = Jd.T @ (wd * e) + Jc.T @ (wc * ec).reshape(-1)
     A = (

@@ -69,6 +69,28 @@ def test_camera_tensor_packing_and_inverse():
     _close(pose.invert_pose(c44), jpose.invert_pose(jnp.asarray(c44.numpy())))
 
 
+def test_to_homogeneous_fills_the_row_as_before():
+    """The bottom row is filled on the tensor's device (no copy from the
+    host): the same values as the tensor the host used to copy, for one
+    pose, a batch of them, and under ``jacfwd`` and autograd."""
+    cam = np.random.default_rng(3).normal(size=(5, 7)).astype(np.float32)
+    c34 = pose.camera_from_tensor(_t(cam))
+
+    def before(c):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c.dtype).expand(c.shape[:-2] + (1, 4))
+        return torch.cat([c, bottom], dim=-2)
+
+    for c in (c34, c34[0]):
+        assert torch.equal(pose.to_homogeneous(c), before(c))
+    x = _t(cam[0])
+    J = torch.func.jacfwd(lambda q: pose.to_homogeneous(pose.camera_from_tensor(q)))(x)
+    assert torch.equal(J, torch.func.jacfwd(lambda q: before(pose.camera_from_tensor(q)))(x))
+    xg = x.clone().requires_grad_(True)
+    pose.to_homogeneous(pose.camera_from_tensor(xg)).sum().backward()
+    assert torch.equal(xg.grad, torch.func.grad(
+        lambda q: before(pose.camera_from_tensor(q)).sum())(x))
+
+
 @pytest.mark.parametrize("scale", [0.0, 1e-7, 1e-3, 0.5])
 def test_se3_exp_incl_taylor_branch(scale):
     rng = np.random.default_rng(3)

@@ -7,7 +7,10 @@ Tolerances: the table and the gather are copies, so bit-exact; 1e-5 on
 values and on the scatter (sums in another order than JAX's), 2e-5 on
 derivatives (as ``tests/unit/test_pallas_trilerp.py``), also between the
 port's two routes, whose gradients sum in different orders; 1e-6 between
-the two routes' values, which share the lerp expression order.
+the two routes' values, which share the lerp expression order. The
+bit-exact model of K5 on the card (``ops/fixed_point.py``) is held to 1e-5
+of the float32 sums; its row-owner walk is held to the forward scatter
+exactly (int64).
 """
 import ast
 import dataclasses
@@ -22,6 +25,7 @@ import torch
 
 from niceslam_tpu.ops import pallas_trilerp as jpal
 from niceslam_tpu.ops import trilinear as jtri
+from niceslam_tpu_torch.ops import fixed_point as fp
 from niceslam_tpu_torch.ops import packed_kernels as pk
 from niceslam_tpu_torch.ops import trilerp_kernels as tk
 from niceslam_tpu_torch.ops.trilinear import (
@@ -139,6 +143,51 @@ def test_scatter_corners_plain_matches_pallas_and_vjp(shape):
     _, vjp = jax.vjp(lambda gr: jtri.trilerp(gr, vz, vy, vx), jnp.asarray(grid))
     np.testing.assert_allclose(
         got.reshape(shape), np.asarray(vjp(jnp.asarray(g))[0]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_fixed_point_model_matches_plain_and_pallas(shape):
+    """The model of K5 on the card: the same bits with the points permuted,
+    and within 1e-5 of the plain version and of the Pallas kernel in
+    interpret mode."""
+    _, idx4, w = _jax_starts(shape, _pts_any(257, 35))
+    g = np.random.default_rng(36).normal(size=(257, shape[3])).astype(np.float32)
+    w8 = np.asarray(jpal.corner_weights(w[:, 0], w[:, 1], w[:, 2]))
+    ct8 = (w8[:, :, None] * g[:, None, :]).astype(np.float32)
+    R, C = shape[0] * shape[1] * shape[2], shape[3]
+    got = fp.scatter_corners_fixed_point(_t(idx4), _t(ct8), R)
+    perm = np.random.default_rng(37).permutation(257)
+    assert torch.equal(fp.scatter_corners_fixed_point(_t(idx4[perm]), _t(ct8[perm]), R), got)
+    want = pk.scatter_corners_plain(_t(idx4), _t(ct8), R)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    want = np.asarray(jpal.scatter_corners_pallas(
+        jnp.asarray(idx4), jnp.asarray(ct8), R, C, tn=128, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_row_owner_sources_invert_the_pair_scatter(shape):
+    """K5's row-owner walk (``pair_row_sources``: bucket ``r`` gives row
+    ``r`` its pairs' left rows, bucket ``r - 1`` their right rows) against
+    ``index_add_`` of the pair scatter, on int64 terms, so exactly: starts
+    of points on the far border and outside the grid (clipped), and pairs
+    out of range, which the kernel skips."""
+    R = shape[0] * shape[1] * shape[2]
+    _, idx4, _ = _jax_starts(shape, _pts_any(300, 42))
+    idx4 = idx4.copy()
+    idx4[:6, 0], idx4[6:12, 2], idx4[12:18, 3] = -1, R - 1, R + 5
+    rng = np.random.default_rng(43)
+    terms = torch.from_numpy(rng.integers(-2**40, 2**40, size=(300, 8, 3)))
+    s = torch.from_numpy(idx4).long().reshape(-1)  # pair p = n*4 + j
+    keep = (s >= 0) & (s <= R - 2)
+    pair = terms.reshape(-1, 2, 3)[keep]  # [kept pairs, x1, 3]
+    want = torch.zeros((R, 3), dtype=torch.int64)
+    for x1 in (0, 1):
+        want.index_add_(0, s[keep] + x1, pair[:, x1])
+    src, ok = fp.pair_row_sources(torch.arange(R), R)
+    assert torch.equal(fp.row_owner_sum_plain(s[keep], pair, src, ok, R), want)
+    assert torch.equal(
+        fp.pair_terms(_t(idx4), terms.double(), R)[1].long(), pair.reshape(-1, 3))
 
 
 # -------------------------------------------------- the packed sample_grid

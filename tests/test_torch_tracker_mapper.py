@@ -33,7 +33,7 @@ from niceslam_tpu_torch.core.rays import Intrinsics
 from niceslam_tpu_torch.render.renderer import RenderConfig
 from niceslam_tpu_torch.slam import keyframes as kf
 from niceslam_tpu_torch.slam import mapper
-from niceslam_tpu_torch.slam.tracker import TrackConfig, track_frame
+from niceslam_tpu_torch.slam.tracker import TrackConfig, gn_prior, track_frame
 
 torch.set_num_threads(1)
 
@@ -175,6 +175,20 @@ def test_mapping_loss_and_grads_match_jax(world, stage):
         want = want_g["decoders"][lvl][name][li][wb]
         got = np.zeros(want.shape, np.float32) if t.grad is None else t.grad.numpy()
         _rel_close(got, want, name=f"{lvl}/{name}/{li}/{wb}")
+
+
+@pytest.mark.parametrize("offset_sigma", [0.0, 0.05])
+def test_gn_prior_fills_the_values_as_before(offset_sigma):
+    """The GN prior is filled on the device (no copy from the host): the
+    float32 values of the tensor the host used to copy, bit for bit."""
+    cfg = TrackConfig(gn_prior_sigma_r=0.015, gn_prior_sigma_t=0.07,
+                      gn_depth_offset_sigma=offset_sigma)
+    diag = [1.0 / cfg.gn_prior_sigma_r**2] * 3 + [1.0 / cfg.gn_prior_sigma_t**2] * 3
+    if offset_sigma > 0:
+        diag.append(1.0 / offset_sigma**2)
+    want = torch.diag(torch.tensor(diag, dtype=torch.float32))
+    got = gn_prior(cfg, "cpu")
+    assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 def test_adam_step_matches_optax_scale_by_adam():

@@ -3,7 +3,10 @@ the JAX reference's production sampler ``ops/trilinear.sample_grid`` and its
 Pallas kernels run in interpret mode.
 
 Tolerances: 1e-5 on values, 2e-5 on derivatives (the grid gradient is a sum
-of corner contributions taken in another order than JAX's transpose).
+of corner contributions taken in another order than JAX's transpose). The
+bit-exact model of K2's grid gradient on the card (``ops/fixed_point.py``)
+is held to 1e-5 of the float32 sums; its row-owner walk is held to the
+forward scatter exactly (int64).
 """
 import jax
 import jax.numpy as jnp
@@ -14,6 +17,7 @@ import torch
 from niceslam_tpu.ops.pallas_trilerp import _corner_indices, trilerp_bwd_pallas, trilerp_vmem
 from niceslam_tpu.ops.trilinear import sample_grid as jax_sample_grid
 from niceslam_tpu.ops.trilinear import voxel_coords as jax_voxel_coords
+from niceslam_tpu_torch.ops import fixed_point as fp
 from niceslam_tpu_torch.ops import trilerp_kernels as tk
 from niceslam_tpu_torch.ops.trilinear import sample_grid, voxel_coords
 
@@ -250,3 +254,56 @@ def test_wrappers_reject_bad_inputs():
     tk.reset_launches()
     tk.trilerp_fwd(grid, v)
     assert tk.LAUNCHES == {"trilerp_fwd": 0, "trilerp_bwd": 0}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fixed_point_model_matches_plain_and_pallas(shape):
+    """The model of K2's dgrid on the card: the same bits with the points
+    permuted, and within 1e-5 of the plain version (border and outside
+    points too) and of the Pallas kernel in interpret mode (interior
+    points, as above)."""
+    C = shape[3]
+    grid = _t(_grid(shape, 30))
+    v = voxel_coords(_t(_pts_any(257, 31)), _t(BOUND), shape[:3]).contiguous()
+    g = _t(np.random.default_rng(32).normal(size=(257, C)).astype(np.float32))
+    got = fp.trilerp_bwd_fixed_point(grid, v, g)
+    perm = torch.from_numpy(np.random.default_rng(33).permutation(257))
+    assert torch.equal(fp.trilerp_bwd_fixed_point(grid, v[perm], g[perm]), got)
+    want, _ = tk.trilerp_bwd_plain(grid, v, g, need_dv=False)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+    pts = _pts_interior(257, 34, shape)
+    vz, vy, vx = jax_voxel_coords(jnp.asarray(pts), jnp.asarray(BOUND), shape[:3])
+    idx, idx4, w = _corner_indices(shape[:3], vz, vy, vx)
+    want_pallas, _ = trilerp_bwd_pallas(
+        jnp.asarray(grid.numpy()).reshape(-1, C), idx, idx4, w, jnp.asarray(g.numpy()),
+        tn=128, interpret=True,
+    )
+    v = voxel_coords(_t(pts), _t(BOUND), shape[:3]).contiguous()
+    got = fp.trilerp_bwd_fixed_point(grid, v, g)
+    np.testing.assert_allclose(
+        got.numpy().reshape(-1, C), np.asarray(want_pallas), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape3", [(13, 7, 9), (12, 5, 6), (19, 6, 11)], ids=["Z13", "Z12", "Z19"])
+def test_row_owner_sources_invert_the_corner_scatter(shape3):
+    """K2's row-owner walk (``trilerp_row_sources``, which the kernel
+    follows) against ``index_add_`` of the corner scatter, on int64 terms,
+    so exactly: grids whose Z, Y and X differ, points on the far border and
+    outside the grid (clipped starts). Without the ``z >= z1, y >= y1,
+    x >= x1`` rule a row would take buckets that are not its starts."""
+    Z, Y, X = shape3
+    R, n = Z * Y * X, 300
+    rng = np.random.default_rng(40)
+    v = rng.uniform(-1.5, np.array(shape3) + 0.5, size=(n, 3))
+    v[:20] = np.array(shape3) - 1  # the far corner
+    v[20:40, 0], v[40:60, 1], v[60:80, 2] = Z - 1, Y - 1, X - 1  # far faces
+    v[80:90] = 0.0
+    rows, _ = fp.corner_terms(shape3, _t(v.astype(np.float32)), torch.zeros((n, 1)))
+    terms = torch.from_numpy(rng.integers(-2**40, 2**40, size=(n, 8, 3)))
+    want = torch.zeros((R, 3), dtype=torch.int64).index_add_(
+        0, rows.reshape(-1), terms.reshape(-1, 3))
+    src, ok = fp.trilerp_row_sources(torch.arange(R), shape3)
+    assert torch.equal(fp.row_owner_sum_plain(rows[:, 0], terms, src, ok, R), want)
+    assert not torch.equal(
+        fp.row_owner_sum_plain(rows[:, 0], terms, src, torch.ones_like(ok), R), want)
