@@ -18,7 +18,11 @@ prints no result):
    from bytes and operations; on uniform random points, and K1, K2 and K5
    again on the points of one mapping batch (frame 0 of the synthetic
    scene at its true pose: stratified and surface samples, which crowd
-   into the voxels at the surface). The grid gradients of K2 and K5 must
+   into the voxels at the surface). K1, with and without its derivative
+   output, also on one mesher chunk (65,536 lattice points in the mesher's
+   order) and, for parity, at C = 3, C = 96 and in a misaligned grid (its
+   scalar and looping variants); its bound counts the grid rows that the
+   points touch. The grid gradients of K2 and K5 must
    equal their fixed-point model (``ops/fixed_point.py``) bit for bit, also
    with the points in another order.
 3. card vs CPU, under each route: the port on the card (kernels) against
@@ -53,6 +57,7 @@ rest of the repository beside it; without either it fails.
 """
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -177,6 +182,19 @@ def bound_ms(nbytes: float, nops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def start_peak(tag: str):
+    """Start a reading of peak device memory. The allocator counts a cached
+    block that it reuses unsplit at its whole size, so the peak would
+    depend on the blocks that earlier phases left in its cache: those are
+    returned to the card first (after the collector frees any tensors held
+    in reference cycles)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag}: device memory allocated at the start "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
@@ -262,26 +280,37 @@ def main_path_grid_shapes(cfg):
     }
 
 
-def surface_points(cfg):
-    """Voxel coordinates on the fine and middle grids of the points of one
-    mapping batch: frame 0 of the synthetic scene seen from its true pose,
-    ``cfg.mapping.pixels`` rays of stratified and surface samples."""
+def scene_points(cfg):
+    """Voxel coordinates on the fine and middle grids of two point sets of
+    the main path: ``"surface"``, the points of one mapping batch (frame 0
+    of the synthetic scene seen from its true pose, ``cfg.mapping.pixels``
+    rays of stratified and surface samples), and ``"mesher"``, the middle
+    65,536-point chunk of the mesher's resolution-128 lattice over the
+    scene bound, in the mesher's order."""
+    from niceslam_tpu_torch.eval.mesher import lattice_points
     from niceslam_tpu_torch.ops.trilinear import voxel_coords
 
     slam, reader = new_slam(cfg, 1, 0)
     frame = reader[0]
     gen = torch.Generator(device="cuda").manual_seed(2)
-    pts = mapping_batch_points(slam, frame, torch.as_tensor(frame.gt_c2w, device="cuda"),
-                               cfg, gen)
-    return {lvl: voxel_coords(pts, slam.bounds[lvl], slam.state.grids[lvl].shape[:3]).contiguous()
-            for lvl in ("fine", "middle")}
+    batch = mapping_batch_points(slam, frame, torch.as_tensor(frame.gt_c2w, device="cuda"),
+                                 cfg, gen)
+    chunk = 65536
+    lattice = lattice_points(slam.scene_bound, 128).reshape(-1, 3)
+    mid = len(lattice) // chunk // 2 * chunk
+    lattice = torch.from_numpy(lattice[mid:mid + chunk]).to("cuda")
+    return {kind: {lvl: voxel_coords(pts, slam.bounds[lvl],
+                                     slam.state.grids[lvl].shape[:3]).contiguous()
+                   for lvl in ("fine", "middle")}
+            for kind, pts in (("surface", batch), ("mesher", lattice))}
 
 
 def kernel_cases(cfg):
     """Phase 2's inputs: per level, a seeded random grid and cotangent at
     uniform random points (fine: the mapping batch's count of points;
     middle: the tracking batch's), then the same grid with a new cotangent
-    at the points of :func:`surface_points`."""
+    at the surface points of :func:`scene_points`, and the same grid at its
+    mesher points (K1 only: the mesher differentiates nothing)."""
     shapes = main_path_grid_shapes(cfg)
     n_track = cfg.tracking.pixels * (cfg.rendering.N_samples + cfg.rendering.N_surface)
     n_map = cfg.mapping.pixels * (cfg.rendering.N_samples + cfg.rendering.N_surface)
@@ -294,14 +323,44 @@ def kernel_cases(cfg):
         v = (torch.rand((n, 3), device="cuda", generator=gen) * hi).contiguous()
         g = torch.randn((n, C), device="cuda", generator=gen)
         cases.append(dict(lvl=lvl, points="uniform", grid=grid, v=v, g=g))
-    for lvl, v in surface_points(cfg).items():
-        grid = next(c["grid"] for c in cases if c["lvl"] == lvl)
-        g = torch.randn((v.shape[0], grid.shape[-1]), device="cuda", generator=gen)
-        cases.append(dict(lvl=lvl, points="surface", grid=grid, v=v, g=g))
+    for kind, pts in scene_points(cfg).items():
+        for lvl, v in pts.items():
+            grid = next(c["grid"] for c in cases if c["lvl"] == lvl)
+            g = (torch.randn((v.shape[0], grid.shape[-1]), device="cuda", generator=gen)
+                 if kind == "surface" else None)
+            cases.append(dict(lvl=lvl, points=kind, grid=grid, v=v, g=g))
     for c in cases:
         c["perm"] = torch.randperm(c["v"].shape[0], device="cuda", generator=gen)
-        c["name"] = f"{c['lvl']}{' surface' if c['points'] == 'surface' else ''} N={c['v'].shape[0]}"
+        kind = "" if c["points"] == "uniform" else f" {c['points']}"
+        c["name"] = f"{c['lvl']}{kind} N={c['v'].shape[0]}"
     return cases
+
+
+def k1_width_cases(cases):
+    """K1's other variants and widths on the fine case's uniform points: C
+    = 3 (the scalar kernel), C = 96 (the vector kernel looping over quads,
+    as when ``vmap`` folds 3 tangents into the channels) and C = 32 in a
+    grid view 4 bytes off alignment (the scalar kernel at the main path's
+    width)."""
+    fine = cases[0]
+    Z, Y, X, _ = fine["grid"].shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for C, off in ((3, 0), (96, 0), (32, 1)):
+        buf = torch.randn(Z * Y * X * C + off, device="cuda", generator=gen) * 0.05
+        grid = buf[off:].view(Z, Y, X, C)
+        kind = f"C={C}" + (" misaligned" if off else "")
+        out.append(dict(lvl="fine", points="width", grid=grid, v=fine["v"],
+                        name=f"fine {kind} N={fine['v'].shape[0]}"))
+    return out
+
+
+def corner_rows_touched(grid, v) -> int:
+    """Distinct grid rows among the 8 corner rows of the points ``v``."""
+    from niceslam_tpu_torch.ops.fixed_point import corner_terms
+
+    rows, _ = corner_terms(grid.shape[:3], v, v[:, :1])
+    return int(torch.unique(rows).numel())
 
 
 def bucket_stats(grid, v) -> str:
@@ -335,32 +394,95 @@ def check_model(name, got, model):
                              f"(max abs diff {max_err(got, model):.3e})")
 
 
-def phase_kernels(cfg):
-    """Parity, time and bound of K1-K5 at the main path's shapes."""
+def grid_sample_inputs(grid, v):
+    """The library yardstick's inputs: the channel-first volume and the
+    normalized xyz coordinates of ``v`` (its border clamp gives equal
+    values)."""
+    Z, Y, X, _ = grid.shape
+    hi = torch.tensor([Z - 1, Y - 1, X - 1], device="cuda", dtype=torch.float32)
+    vol = grid.permute(3, 0, 1, 2)[None].contiguous()
+    nrm = (v.flip(-1) / hi.flip(-1) * 2 - 1).reshape(1, v.shape[0], 1, 1, 3).contiguous()
+    return vol, nrm
+
+
+def k1_rows(tk, case):
+    """K1 on one case, without and with its derivative output: parity with
+    the plain version (1e-5), the variant that ``fwd_variant`` picks (where
+    it picks the scalar one at C % 4 == 0, the entry point must refuse the
+    vector one), times, and the bound counting the grid rows that the
+    points touch; beside them the corner-row bytes that a call reads
+    (8 * N * C * 4) and their rate."""
     import torch.nn.functional as F
 
+    grid, v, name = case["grid"], case["v"], case["name"]
+    C, n = grid.shape[-1], v.shape[0]
+    vol, nrm = grid_sample_inputs(grid, v)
+
+    def lib_fwd():
+        return F.grid_sample(vol, nrm, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    touched = corner_rows_touched(grid, v)
+    rows = []
+    for deriv in (False, True):
+        out, dout = tk.trilerp_fwd(grid, v, deriv=deriv)
+        ref, dref = tk.trilerp_fwd_plain(grid, v, deriv=deriv)
+        torch.cuda.synchronize()
+        check_close(f"trilerp_fwd[{name}, deriv={deriv}] out", out, ref, 1e-5, 1e-5)
+        err = max_err(out, ref)
+        if deriv:
+            check_close(f"trilerp_fwd[{name}] dV/dv", dout, dref, 1e-5, 1e-5)
+            err = max(err, max_err(dout, dref))
+        else:
+            gs_out = lib_fwd()[0, :, :, 0, 0].t()
+            check_close(f"grid_sample[{name}] vs plain", gs_out, ref, 1e-4, 1e-5)
+        dptr = dout.data_ptr() if deriv else None
+        variant, G = tk.fwd_variant(C, grid.data_ptr(), out.data_ptr(), dptr)
+        if variant == "scalar" and C % 4 == 0:
+            rc = tk._lib().trilerp_fwd(
+                grid.data_ptr(), v.data_ptr(), out.data_ptr(), dptr, n, *grid.shape,
+                True, 8, torch.cuda.current_stream().cuda_stream)
+            if rc != 1:  # cudaErrorInvalidValue
+                raise AssertionError(f"trilerp_fwd[{name}]: the vector variant on "
+                                     f"misaligned pointers returned {rc}, not refused")
+        ms = device_ms(lambda: tk.trilerp_fwd(grid, v, deriv=deriv))
+        plain = device_ms(lambda: tk.trilerp_fwd_plain(grid, v, deriv=deriv), reps=10)
+        libt = None if deriv else device_ms(lib_fwd)
+        nbytes = 4 * (touched * C + 3 * n + n * C + (3 * n * C if deriv else 0))
+        nops = n * C * (FWD_OPS + (DERIV_OPS if deriv else 0))
+        bms, by = bound_ms(nbytes, nops)
+        corner_bytes = 8 * n * C * 4
+        rows.append(dict(name="trilerp_fwd", case=f"{name} deriv={int(deriv)}",
+                         points=case["points"], max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=libt, bound_ms=bms, bound_by=by,
+                         extra=f"{variant} G={G}, {touched} rows touched, corner rows "
+                               f"{corner_bytes / 1e6:.1f} MB at "
+                               f"{corner_bytes / (ms * 1e-3) / 1e12:.2f} TB/s"))
+    return rows
+
+
+def phase_kernels(cfg):
+    """Parity, time and bound of K1-K5 at the main path's shapes."""
     from niceslam_tpu_torch.ops import fixed_point as fp
     from niceslam_tpu_torch.ops import packed_kernels as pk
     from niceslam_tpu_torch.ops import trilerp_kernels as tk
 
     log(f"main-path grid shapes [Z,Y,X,C]: {main_path_grid_shapes(cfg)}")
     rows = []
-    for case in kernel_cases(cfg):
-        grid, v, g, perm, name = case["grid"], case["v"], case["g"], case["perm"], case["name"]
+    cases = kernel_cases(cfg)
+    for case in cases + k1_width_cases(cases):
+        grid, v, name = case["grid"], case["v"], case["name"]
+        log(f"kernel inputs [{name}]: {bucket_stats(grid, v)}")
+        rows += k1_rows(tk, case)
+        if case["points"] in ("mesher", "width"):
+            continue
+        g, perm = case["g"], case["perm"]
         uniform = case["points"] == "uniform"
         Z, Y, X, C = grid.shape
         R, n = Z * Y * X, v.shape[0]
-        log(f"kernel inputs [{name}]: {bucket_stats(grid, v)}")
         # The library yardstick: grid_sample on the channel-first volume at
         # normalized xyz coordinates (its border clamp gives equal values).
-        hi = torch.tensor([Z - 1, Y - 1, X - 1], device="cuda", dtype=torch.float32)
-        vol = grid.permute(3, 0, 1, 2)[None].contiguous()
-        nrm = (v.flip(-1) / hi.flip(-1) * 2 - 1).reshape(1, n, 1, 1, 3).contiguous()
-
-        def lib_fwd():
-            return F.grid_sample(vol, nrm, mode="bilinear", padding_mode="border",
-                                 align_corners=True)
-
+        vol, nrm = grid_sample_inputs(grid, v)
         lib_gout = g.t().reshape(1, C, n, 1, 1).contiguous()
 
         def lib_bwd():
@@ -371,27 +493,6 @@ def phase_kernels(cfg):
             rows.append(dict(name=kname, case=name, points=case["points"], **kw))
 
         torch.cuda.synchronize()
-        for deriv in ((False, True) if uniform else (False,)):
-            out, dout = tk.trilerp_fwd(grid, v, deriv=deriv)
-            ref, dref = tk.trilerp_fwd_plain(grid, v, deriv=deriv)
-            torch.cuda.synchronize()
-            check_close(f"trilerp_fwd[{name}, deriv={deriv}] out", out, ref, 1e-5, 1e-5)
-            err = max_err(out, ref)
-            if deriv:
-                check_close(f"trilerp_fwd[{name}] dV/dv", dout, dref, 1e-5, 1e-5)
-                err = max(err, max_err(dout, dref))
-            else:
-                gs_out = lib_fwd()[0, :, :, 0, 0].t()
-                check_close(f"grid_sample[{name}] vs plain", gs_out, ref, 1e-4, 1e-5)
-            ms = device_ms(lambda: tk.trilerp_fwd(grid, v, deriv=deriv))
-            plain = device_ms(lambda: tk.trilerp_fwd_plain(grid, v, deriv=deriv), reps=10)
-            libt = None if deriv else device_ms(lib_fwd)
-            nbytes = 4 * (R * C + 3 * n + n * C + (3 * n * C if deriv else 0))
-            nops = n * C * (FWD_OPS + (DERIV_OPS if deriv else 0))
-            bms, by = bound_ms(nbytes, nops)
-            rows.append(dict(name="trilerp_fwd", case=f"{name} deriv={int(deriv)}",
-                             points=case["points"], max_abs_err=err, ms=ms, plain_ms=plain,
-                             library_ms=libt, bound_ms=bms, bound_by=by))
         dgrid, dv = tk.trilerp_bwd(grid, v, g)
         rdgrid, rdv = tk.trilerp_bwd_plain(grid, v, g)
         pdgrid, _ = tk.trilerp_bwd(grid, v[perm].contiguous(), g[perm].contiguous(),
@@ -419,7 +520,8 @@ def phase_kernels(cfg):
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']:<15} {r['case']:<34} max_abs_err {r['max_abs_err']:.3e}  "
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms {lib}  "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+            + (f"  [{r['extra']}]" if "extra" in r else ""))
     return rows
 
 
@@ -617,6 +719,7 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
                     keep: int = 0):
     """``NiceSLAM.step`` over ``n_frames`` under ``route``; with ``keep`` the
     result holds a :func:`snapshot` after frame ``keep - 1``."""
+    from niceslam_tpu_torch.ops.trilerp_kernels import FWD_TALLY as tally
     from niceslam_tpu_torch.ops.trilinear import sampler_route
 
     slam, reader = new_slam(cfg, n_frames, seed)
@@ -624,8 +727,9 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
     kept = None
     tag = f"[{route}] seed {seed}"
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    start_peak(tag)
     set_launches({})
+    tally.clear()
     dts = []
     for k, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -641,14 +745,22 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
                 for e in ev[:-1]))
         if k == 0 and route == "packed":
             # Not part of the main path: its launches are taken out again.
-            counts = all_launches()
+            counts, split = all_launches(), dict(tally)
             compare_routes_on_map(slam, frame, cfg)
             set_launches(counts)
+            tally.clear()
+            tally.update(split)
         if k == keep - 1:
             kept = snapshot(slam)
     peak = torch.cuda.max_memory_allocated()
     launches = all_launches()
     log(f"{tag}: main-path launches: {launches}")
+    if launches["trilerp_fwd"]:
+        if sum(tally.values()) != launches["trilerp_fwd"]:
+            raise AssertionError(f"{tag}: K1's tally {dict(tally)} does not add up to "
+                                 f"{launches['trilerp_fwd']}")
+        log(f"{tag}: K1 launches by variant, derivative output and N: " + ", ".join(
+            f"{var} deriv={int(d)} N={n}: {c}" for (var, d, n), c in sorted(tally.items())))
     log(f"{tag}: peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated)")
     check_route_launches(f"main path {tag}", route, launches)
     res = slam.result()
@@ -767,7 +879,7 @@ def phase_mesher(slam, cfg, resolution: int = 128):
     for route in ("fused", "packed"):
         with sampler_route(route):
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            start_peak(f"mesher [{route}]")
             set_launches({})
             t0 = time.perf_counter()
             occ, _ = mesher.query_occupancy_grid(*args, resolution=resolution)

@@ -9,23 +9,40 @@
 //   start = clamp(floor(v), 0, dim-2), weight = v - start
 //   corner k = z1*4 + y1*2 + x1 reads row start + (z1, y1, x1)
 //
-// Design: one warp per point, lane = channel. At C = 32 each corner read is
-// one coalesced 128-byte row, and every lane computes the point's start and
-// weights in registers (no host-side index or weight arrays). Larger C loops
-// over channel groups of 32; a smaller C leaves lanes idle.
+// Both kernels compute each point's start and weights in registers (no
+// host-side index or weight arrays).
 //
 // K1 trilerp_fwd replaces the TPU kernel trilerp_vmem / _trilerp_kernel
 // (niceslam_tpu/ops/pallas_trilerp.py:180-258). With `dout` non-null it also
 // writes the spatial derivative dV/dv [N, 3, C] (the axial differences of
 // _trilerp_bwd_kernel, pallas_trilerp.py:363-373, before they meet the
 // cotangent), which forward-mode differentiation needs.
+// Design: a group of G lanes per point (G = 8 at C = 32: four points per
+// warp). Where C % 4 == 0 and the rows and outputs are 16-byte aligned,
+// lane j of the group holds channels 4j..4j+3 (and loops over further
+// quads at C > 32), and each corner is one float4 load: a load instruction
+// moves 512 B, where one warp per point moved 128 B. Otherwise a scalar
+// variant of the same kernel holds single channels (up to 32 lanes per
+// point). The wrapper picks the variant and G (trilerp_kernels.fwd_variant)
+// and the entry point refuses a float4 variant that the pointers do not
+// fit. The setup (coordinates, start, weights, one 64-bit base pointer)
+// is done once per point, a warp instruction serving four points, and each
+// lane loads its next point's coordinates before its current point's
+// corners. Each block takes a contiguous run of points (a ray's samples, a
+// lattice line of the mesher), so corners shared by neighbouring points
+// are met in one SM's L1. The lerp of each channel keeps the expressions
+// and the order of the earlier one-warp-per-point kernel: the same bits.
 // Bound on an H100 at the main path's largest call (fine level, 38x24x53x32
-// = 6.2 MB, N = 48,000): it reads 8 x 128 B per point, mostly from L2 (the
-// whole hierarchy, ~13 MB, fits the 50 MB L2), and writes 128 B per point:
-// ~55 MB of L2 traffic. Counting each input once and each output once
-// (grid 6.2 MB + coordinates 0.6 MB + output 6.1 MB) it moves ~13 MB, which
-// at 3.35 TB/s of HBM bounds it at ~4 us; 21 flops per point and channel are
-// far below the fp32 peak. It is bound by memory, not arithmetic.
+// = 6.2 MB, N = 48,000 uniform points): counting each grid row that the
+// points touch once, the coordinates (0.6 MB) and the output (6.1 MB) it
+// moves ~13 MB, ~4 us at 3.35 TB/s; 21 flops per point and channel are far
+// below the fp32 peak. Beyond that bound it reads 8 x 128 B of corner rows
+// per point (49 MB per call) from L2 and L1 (the whole grid hierarchy,
+// ~13 MB, fits the 50 MB L2). What bounds it in practice (H100, PERF.md):
+// on uniform points the L2 gather of those rows; where L1 serves the
+// corners (a ray's samples, the mesher's lattice), a floor of launch and
+// instruction throughput, about what a call with every point in one voxel
+// takes.
 //
 // K2 trilerp_bwd replaces trilerp_bwd_pallas / _trilerp_bwd_kernel
 // (pallas_trilerp.py:334-438). It writes dgrid [R, C], the scatter of
@@ -55,7 +72,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;            // 8 warps = 8 points per block
+constexpr int kThreads = 256;            // K2: 8 warps = 8 points per block
 constexpr int kPointsPerBlock = kThreads / 32;
 
 struct PointCorners {
@@ -108,38 +125,161 @@ __device__ __forceinline__ Corners8 load_corners(
   return k;
 }
 
-__global__ void __launch_bounds__(kThreads) trilerp_fwd_kernel(
-    const float* __restrict__ grid, const float* __restrict__ v,
-    float* __restrict__ out, float* __restrict__ dout,
-    int N, int Z, int Y, int X, int C) {
-  const long long n =
-      (long long)blockIdx.x * kPointsPerBlock + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int lane = threadIdx.x & 31;
-  const PointCorners p = point_corners(v, n, Z, Y, X);
-  const float wx = p.wx, wy = p.wy, wz = p.wz;
-  for (int c = lane; c < C; c += 32) {
-    const Corners8 k = load_corners(grid, p, C, c);
-    // Nested x -> y -> z lerp, in the reference's expression order.
-    const float c00 = k.c000 * (1 - wx) + k.c001 * wx;
-    const float c01 = k.c010 * (1 - wx) + k.c011 * wx;
-    const float c10 = k.c100 * (1 - wx) + k.c101 * wx;
-    const float c11 = k.c110 * (1 - wx) + k.c111 * wx;
-    const float c0 = c00 * (1 - wy) + c01 * wy;
-    const float c1 = c10 * (1 - wy) + c11 * wy;
-    out[n * C + c] = c0 * (1 - wz) + c1 * wz;
-    if (dout != nullptr) {
-      const float dz = c1 - c0;
-      const float dy = (c01 - c00) * (1 - wz) + (c11 - c10) * wz;
-      const float dx0 = (k.c001 - k.c000) * (1 - wy) + (k.c011 - k.c010) * wy;
-      const float dx1 = (k.c101 - k.c100) * (1 - wy) + (k.c111 - k.c110) * wy;
-      const float dx = dx0 * (1 - wz) + dx1 * wz;
-      float* d = dout + n * 3 * C + c;
-      d[0] = dz;
-      d[C] = dy;
-      d[2 * C] = dx;
-    }
+// ------------------------------------------------------------------- K1
+// A unit is what one lane loads from a corner row at a time: a float4 of
+// four channels (the vector variant) or one channel (the scalar variant).
+template <typename T>
+struct Unit;
+
+template <>
+struct Unit<float> {
+  static constexpr int kFloats = 1;
+  __device__ static __forceinline__ float load(const float* p) { return __ldg(p); }
+  __device__ static __forceinline__ float& at(float& u, int) { return u; }
+};
+
+template <>
+struct Unit<float4> {
+  static constexpr int kFloats = 4;
+  __device__ static __forceinline__ float4 load(const float4* p) { return __ldg(p); }
+  __device__ static __forceinline__ float& at(float4& u, int i) {
+    return i == 0 ? u.x : (i == 1 ? u.y : (i == 2 ? u.z : u.w));
   }
+};
+
+// One channel of K1: the nested x -> y -> z lerp and, with kDeriv, its
+// three axial derivatives, in the expressions and the order of the earlier
+// one-warp-per-point kernel. The bits depend on how nvcc contracts them
+// into FMAs, so the vector and scalar variants both run exactly this code
+// on each channel.
+template <bool kDeriv>
+__device__ __forceinline__ void lerp_channel(
+    float c000, float c001, float c010, float c011, float c100, float c101,
+    float c110, float c111, float wz, float wy, float wx, float& o, float& dz,
+    float& dy, float& dx) {
+  const float c00 = c000 * (1 - wx) + c001 * wx;
+  const float c01 = c010 * (1 - wx) + c011 * wx;
+  const float c10 = c100 * (1 - wx) + c101 * wx;
+  const float c11 = c110 * (1 - wx) + c111 * wx;
+  const float c0 = c00 * (1 - wy) + c01 * wy;
+  const float c1 = c10 * (1 - wy) + c11 * wy;
+  o = c0 * (1 - wz) + c1 * wz;
+  if (kDeriv) {
+    dz = c1 - c0;
+    dy = (c01 - c00) * (1 - wz) + (c11 - c10) * wz;
+    const float dx0 = (c001 - c000) * (1 - wy) + (c011 - c010) * wy;
+    const float dx1 = (c101 - c100) * (1 - wy) + (c111 - c110) * wy;
+    dx = dx0 * (1 - wz) + dx1 * wz;
+  }
+}
+
+constexpr int kFwdThreads = 256;  // K1's block, chosen on an H100 (PERF.md)
+
+// Block b takes points [b * chunk, (b + 1) * chunk) in steps of
+// blockDim.x >> shift points; lane j of a point's group of 1 << shift lanes
+// takes units j, j + G, ... of each row (U units per row: kU where it is
+// known when compiling, the main path's C = 32, so that the x + 1 corner is
+// an immediate offset of the load). Each lane reads
+// its point's coordinates itself (the group's lanes read one address, so a
+// warp's load instruction serves 32 >> shift points) and those of its next
+// point before this point's corners, so the two latencies overlap. The
+// start row is int32 (R < 2^31), and the corners are one 64-bit base
+// pointer plus the strides U, X*U and Y*X*U.
+template <typename T, bool kDeriv, int kU>
+__global__ void __launch_bounds__(kFwdThreads) trilerp_fwd_kernel(
+    const T* __restrict__ grid, const float* __restrict__ v, T* __restrict__ out,
+    T* __restrict__ dout, int N, int Z, int Y, int X, int units, int shift,
+    int chunk) {
+  using Un = Unit<T>;
+  const int U = kU ? kU : units;
+  const int G = 1 << shift;
+  const int j = threadIdx.x & (G - 1);
+  const int step = blockDim.x >> shift;
+  const long long last = (long long)(blockIdx.x + 1) * chunk;
+  const int end = last < N ? (int)last : N;
+  const long long sy = (long long)X * U, sz = (long long)Y * X * U;
+  int n = blockIdx.x * chunk + (threadIdx.x >> shift);
+  float vz = 0.f, vy = 0.f, vx = 0.f;
+  if (n < end) {
+    vz = __ldg(v + 3LL * n);
+    vy = __ldg(v + 3LL * n + 1);
+    vx = __ldg(v + 3LL * n + 2);
+  }
+  for (; n < end; n += step) {
+    const int m = n + step;
+    float mz = 0.f, my = 0.f, mx = 0.f;
+    if (m < end) {
+      mz = __ldg(v + 3LL * m);
+      my = __ldg(v + 3LL * m + 1);
+      mx = __ldg(v + 3LL * m + 2);
+    }
+    // floorf of a NaN converts to 0 and the clamp keeps every read in bounds.
+    const int z0 = clampi((int)floorf(vz), 0, Z - 2);
+    const int y0 = clampi((int)floorf(vy), 0, Y - 2);
+    const int x0 = clampi((int)floorf(vx), 0, X - 2);
+    const float wz = vz - (float)z0, wy = vy - (float)y0, wx = vx - (float)x0;
+    const T* b = grid + (long long)((z0 * Y + y0) * X + x0) * U;
+    T* o = out + (long long)n * U;
+    T* d = kDeriv ? dout + 3LL * n * U : nullptr;
+    for (int q = j; q < U; q += G) {
+      const T* p = b + q;
+      // Corner k = z1*4 + y1*2 + x1, all eight loads in flight at once.
+      T k[8] = {Un::load(p), Un::load(p + U), Un::load(p + sy),
+                Un::load(p + sy + U), Un::load(p + sz), Un::load(p + sz + U),
+                Un::load(p + sz + sy), Un::load(p + sz + sy + U)};
+      T r, rz, ry, rx;
+#pragma unroll
+      for (int i = 0; i < Un::kFloats; ++i) {
+        lerp_channel<kDeriv>(
+            Un::at(k[0], i), Un::at(k[1], i), Un::at(k[2], i), Un::at(k[3], i),
+            Un::at(k[4], i), Un::at(k[5], i), Un::at(k[6], i), Un::at(k[7], i),
+            wz, wy, wx, Un::at(r, i), Un::at(rz, i), Un::at(ry, i), Un::at(rx, i));
+      }
+      o[q] = r;
+      if (kDeriv) {
+        d[q] = rz;
+        d[U + q] = ry;
+        d[2 * U + q] = rx;
+      }
+    }
+    vz = mz;
+    vy = my;
+    vx = mx;
+  }
+}
+
+template <typename T, int kU = 0>
+int launch_fwd(const float* grid, const float* v, float* out, float* dout,
+               int N, int Z, int Y, int X, int C, int shift, cudaStream_t s) {
+  const bool deriv = dout != nullptr;
+  const auto kernel = deriv ? trilerp_fwd_kernel<T, true, kU>
+                            : trilerp_fwd_kernel<T, false, kU>;
+  // Blocks resident on the card (one model of card per process), queried
+  // once per kernel.
+  static int resident[2] = {};
+  int& cap = resident[deriv];
+  if (cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    cap = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  // Each block takes `steps` steps of `step` consecutive points: as few
+  // steps as fill the resident blocks once.
+  const int step = kFwdThreads >> shift;
+  const long long tiles = (N + (long long)step - 1) / step;
+  const long long steps = (tiles + cap - 1) / cap;
+  const long long chunk = steps * step;
+  const int blocks = (int)((N + chunk - 1) / chunk);
+  constexpr int kFloats = sizeof(T) / sizeof(float);
+  kernel<<<blocks, kFwdThreads, 0, s>>>(
+      reinterpret_cast<const T*>(grid), v, reinterpret_cast<T*>(out),
+      reinterpret_cast<T*>(dout), N, Z, Y, X, C / kFloats, shift, (int)chunk);
+  return (int)cudaGetLastError();
 }
 
 // The per-point pass: dv; with `counts` non-null also the bucket count of
@@ -275,12 +415,31 @@ int blocks_for(int N) { return (N + kPointsPerBlock - 1) / kPointsPerBlock; }
 
 extern "C" {
 
+// K1 with the variant the caller chose (trilerp_kernels.fwd_variant, the
+// one place of the rule): `vec` non-zero for the float4 kernel, which
+// needs C % 4 == 0 and grid, out and dout (if any) 16-byte aligned, else
+// the float kernel; G lanes per point, a power of two up to 32. Anything
+// else returns cudaErrorInvalidValue and launches nothing.
 int trilerp_fwd(const float* grid, const float* v, float* out, float* dout,
-                int N, int Z, int Y, int X, int C, void* stream) {
+                int N, int Z, int Y, int X, int C, int vec, int G,
+                void* stream) {
   if (N <= 0) return 0;
-  trilerp_fwd_kernel<<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
-      grid, v, out, dout, N, Z, Y, X, C);
-  return (int)cudaGetLastError();
+  const auto aligned = [](const void* p) {
+    return ((unsigned long long)p & 15ULL) == 0;
+  };
+  int shift = 0;
+  while (shift < 5 && (1 << shift) < G) ++shift;
+  if ((1 << shift) != G || (long long)Z * Y * X >= (1LL << 31) ||
+      N > (1 << 30) ||
+      (vec && !(C % 4 == 0 && aligned(grid) && aligned(out) &&
+                (dout == nullptr || aligned(dout)))))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!vec)
+    return launch_fwd<float>(grid, v, out, dout, N, Z, Y, X, C, shift, s);
+  if (C == 32)
+    return launch_fwd<float4, 8>(grid, v, out, dout, N, Z, Y, X, C, shift, s);
+  return launch_fwd<float4>(grid, v, out, dout, N, Z, Y, X, C, shift, s);
 }
 
 // int32 words of trilerp_bwd's scratch for a grid of R rows and N points.

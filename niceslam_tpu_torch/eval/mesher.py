@@ -55,6 +55,20 @@ def _query_chunks(params, grids, bounds, flat: np.ndarray, chunk: int, fn) -> np
     return out.cpu().numpy()[: len(flat)]
 
 
+def lattice_points(scene_bound, resolution: int) -> np.ndarray:
+    """The query lattice ``[R, R, R, 3]`` (xyz points, axes in (z, y, x)
+    order) over ``scene_bound [3, 2]``."""
+    sb = (
+        scene_bound.detach().cpu().numpy()
+        if isinstance(scene_bound, torch.Tensor) else np.asarray(scene_bound)
+    )
+    xs = np.linspace(sb[0, 0], sb[0, 1], resolution)
+    ys = np.linspace(sb[1, 0], sb[1, 1], resolution)
+    zs = np.linspace(sb[2, 0], sb[2, 1], resolution)
+    Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+    return np.stack([X, Y, Z], axis=-1).astype(np.float32)
+
+
 def query_occupancy_grid(
     params,
     grids: Dict[str, torch.Tensor],
@@ -68,15 +82,7 @@ def query_occupancy_grid(
 
     Returns ``(occ [R, R, R], pts [R, R, R, 3])`` with axis order (z, y, x).
     """
-    sb = (
-        scene_bound.detach().cpu().numpy()
-        if isinstance(scene_bound, torch.Tensor) else np.asarray(scene_bound)
-    )
-    xs = np.linspace(sb[0, 0], sb[0, 1], resolution)
-    ys = np.linspace(sb[1, 0], sb[1, 1], resolution)
-    zs = np.linspace(sb[2, 0], sb[2, 1], resolution)
-    Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
-    pts = np.stack([X, Y, Z], axis=-1).astype(np.float32)
+    pts = lattice_points(scene_bound, resolution)
     occ = _query_chunks(
         params, grids, bounds, pts.reshape(-1, 3), chunk,
         lambda pr, g, p, b: nice_forward(pr, g, p, b, stage)[:, 3],

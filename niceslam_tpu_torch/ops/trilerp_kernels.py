@@ -3,7 +3,9 @@ differentiable op that binds them.
 
 - ``trilerp_fwd`` (K1) replaces the TPU kernel ``trilerp_vmem``
   (``niceslam_tpu/ops/pallas_trilerp.py:180-258``); with ``deriv=True`` it
-  also returns the spatial derivative ``dV/dv [N, 3, C]``.
+  also returns the spatial derivative ``dV/dv [N, 3, C]``. A group of
+  lanes reads each point's corners, one float4 per corner per lane where
+  :func:`fwd_variant` allows it.
 - ``trilerp_bwd`` (K2) replaces ``trilerp_bwd_pallas``
   (``pallas_trilerp.py:334-438``): ``dgrid`` by a row-owner reduction in
   int64 fixed point (``csrc/fixed_sum.cuh``: the same bits whatever order
@@ -22,7 +24,8 @@ The kernels are built from ``csrc/trilerp.cu`` with ``nvcc`` at first use
 into ``<repo>/build/kernels/`` (one shared library per source digest) and
 bound with ``ctypes``. :func:`build` and :func:`load_library` serve every
 ``csrc/*.cu`` of the package (and the ``csrc/*.cuh`` they include).
-``LAUNCHES`` counts each kernel's launches.
+``LAUNCHES`` counts each kernel's launches; ``FWD_TALLY`` splits K1's by
+the variant launched, derivative output and number of points.
 """
 from __future__ import annotations
 
@@ -31,12 +34,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
 LAUNCHES = {"trilerp_fwd": 0, "trilerp_bwd": 0}
+# K1's launches by (variant, deriv, N); their sum is LAUNCHES["trilerp_fwd"].
+FWD_TALLY: Counter = Counter()
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SRC = CSRC / "trilerp.cu"
@@ -51,6 +57,7 @@ _LIB = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FWD_TALLY.clear()
 
 
 def find_nvcc() -> str:
@@ -120,7 +127,7 @@ def _lib():
     if _LIB is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _LIB = load_library(_SRC, {
-            "trilerp_fwd": [p, p, p, p, i, i, i, i, i, p],
+            "trilerp_fwd": [p, p, p, p, i, i, i, i, i, i, i, p],
             "trilerp_bwd": [p, p, p, p, p, p, i, i, i, i, i, p],
             "trilerp_bwd_scratch": [i, i, i],
         })
@@ -146,6 +153,23 @@ def _check(grid: torch.Tensor, v: torch.Tensor, g: Optional[torch.Tensor] = None
         raise ValueError(f"g must be [N, C], got {tuple(g.shape)}")
     if grid.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {grid.device}")
+
+
+def fwd_variant(C: int, grid_ptr: int, out_ptr: int, dout_ptr: Optional[int] = None):
+    """K1's variant and lanes per point for these addresses and C, as
+    ``("vector" | "scalar", G)``: the one place of the rule, whose choice
+    :func:`trilerp_fwd` passes to the kernel's entry point (which refuses
+    a vector variant that the pointers do not fit). The vector variant (one
+    float4 per corner per lane) needs C % 4 == 0 and grid, out and dout
+    16-byte aligned; G is the largest power of two up to the units per row
+    (4 channels or 1) and up to 8 (vector) or 32 (scalar)."""
+    ptrs = (grid_ptr, out_ptr) + (() if dout_ptr is None else (dout_ptr,))
+    vec = C % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    units = C // 4 if vec else C
+    g = 1
+    while 2 * g <= min(8 if vec else 32, units):
+        g *= 2
+    return ("vector" if vec else "scalar"), g
 
 
 def _launch_check(rc: int, name: str):
@@ -234,6 +258,8 @@ def trilerp_fwd(grid: torch.Tensor, v: torch.Tensor, deriv: bool = False):
         return trilerp_fwd_plain(grid, v, deriv)
     Z, Y, X, C = grid.shape
     N = v.shape[0]
+    if Z * Y * X >= 2**31:
+        raise ValueError(f"K1 takes grids of fewer than 2^31 rows: {tuple(grid.shape)}")
     out = torch.empty((N, C), dtype=grid.dtype, device=grid.device)
     dout = (
         torch.empty((N, 3, C), dtype=grid.dtype, device=grid.device)
@@ -241,14 +267,16 @@ def trilerp_fwd(grid: torch.Tensor, v: torch.Tensor, deriv: bool = False):
     )
     if N == 0:
         return out, dout
+    dptr = dout.data_ptr() if deriv else None
+    variant, G = fwd_variant(C, grid.data_ptr(), out.data_ptr(), dptr)
     with torch.cuda.device(grid.device):
         rc = _lib().trilerp_fwd(
-            grid.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr() if deriv else None, N, Z, Y, X, C,
-            torch.cuda.current_stream().cuda_stream,
+            grid.data_ptr(), v.data_ptr(), out.data_ptr(), dptr, N, Z, Y, X, C,
+            variant == "vector", G, torch.cuda.current_stream().cuda_stream,
         )
     _launch_check(rc, "trilerp_fwd")
     LAUNCHES["trilerp_fwd"] += 1
+    FWD_TALLY[variant, deriv, N] += 1
     return out, dout
 
 

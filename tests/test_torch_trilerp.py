@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from niceslam_tpu.ops.pallas_trilerp import _corner_indices, trilerp_bwd_pallas, trilerp_vmem
+from niceslam_tpu.ops.trilinear import corner_table as jax_corner_table
 from niceslam_tpu.ops.trilinear import sample_grid as jax_sample_grid
+from niceslam_tpu.ops.trilinear import trilerp_packed as jax_trilerp_packed
 from niceslam_tpu.ops.trilinear import voxel_coords as jax_voxel_coords
 from niceslam_tpu_torch.ops import fixed_point as fp
 from niceslam_tpu_torch.ops import trilerp_kernels as tk
@@ -254,6 +256,69 @@ def test_wrappers_reject_bad_inputs():
     tk.reset_launches()
     tk.trilerp_fwd(grid, v)
     assert tk.LAUNCHES == {"trilerp_fwd": 0, "trilerp_bwd": 0}
+    assert not tk.FWD_TALLY
+
+
+def _misaligned(shape):
+    """A contiguous float32 view of ``shape`` 4 bytes off 16-byte alignment."""
+    buf = torch.zeros(int(np.prod(shape)) + 4)
+    off = next(k for k in range(4) if (buf.data_ptr() + 4 * k) % 16 == 4)
+    return buf[off:off + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.parametrize("C, aligned, want", [
+    (32, True, ("vector", 8)),  # the main path: 4 points per warp
+    (96, True, ("vector", 8)),  # vmap's fold of 3 tangents: 3 quads per lane
+    (3, True, ("scalar", 2)),
+    (6, True, ("scalar", 4)),
+    (32, False, ("scalar", 32)),  # lane = channel
+], ids=["C32", "C96", "C3", "C6", "C32-misaligned"])
+@pytest.mark.parametrize("deriv", [False, True], ids=["out", "deriv"])
+def test_fwd_variant_rule(C, aligned, want, deriv):
+    """K1's variant rule (``fwd_variant``, whose choice the wrapper passes
+    to the kernel's entry point) on tensors as the wrapper allocates them."""
+    shape = (4, 5, 6, C)
+    grid = torch.zeros(shape) if aligned else _misaligned(shape)
+    assert grid.is_contiguous() and (grid.data_ptr() % 16 == 0) == aligned
+    out = torch.empty((7, C))
+    dout = torch.empty((7, 3, C)) if deriv else None
+    got = tk.fwd_variant(C, grid.data_ptr(), out.data_ptr(),
+                         dout.data_ptr() if deriv else None)
+    assert got == want
+    # An output off alignment takes the scalar kernel too.
+    assert tk.fwd_variant(C, grid.data_ptr(), out.data_ptr() + 4)[0] == "scalar"
+
+
+@pytest.mark.parametrize("C", [3, 96])
+def test_plain_fwd_matches_jax_at_other_widths(C):
+    """K1's plain version (the kernel's scalar variant's width C = 3, and
+    C = 96, which the vector variant loops over) against ``trilerp_vmem``
+    in interpret mode and the JAX ``sample_grid``; its derivative output
+    against JAX's jvp of the production lerp, on interior points (1e-5)."""
+    shape = (13, 7, 9, C)
+    grid = _grid(shape, 50)
+    pts = _pts_any(257, 51)
+    vz, vy, vx = jax_voxel_coords(jnp.asarray(pts), jnp.asarray(BOUND), shape[:3])
+    v = voxel_coords(_t(pts), _t(BOUND), shape[:3]).contiguous()
+    out, _ = tk.trilerp_fwd_plain(_t(grid), v)
+    want = np.asarray(trilerp_vmem(jnp.asarray(grid), vz, vy, vx, tn=128, interpret=True))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    want = np.asarray(jax_sample_grid(jnp.asarray(grid), jnp.asarray(pts), jnp.asarray(BOUND)))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    pts = _pts_interior(257, 52, shape)
+    vz, vy, vx = jax_voxel_coords(jnp.asarray(pts), jnp.asarray(BOUND), shape[:3])
+    table = jax_corner_table(jnp.asarray(grid))
+    lerp = lambda z, y, x: jax_trilerp_packed(table, shape[:3], z, y, x)  # noqa: E731
+    ones, zeros = jnp.ones_like(vz), jnp.zeros_like(vz)
+    want = np.stack([
+        np.asarray(jax.jvp(lerp, (vz, vy, vx), t)[1])
+        for t in ((ones, zeros, zeros), (zeros, ones, zeros), (zeros, zeros, ones))
+    ], axis=1)
+    v = voxel_coords(_t(pts), _t(BOUND), shape[:3]).contiguous()
+    out, dvol = tk.trilerp_fwd_plain(_t(grid), v, deriv=True)
+    assert torch.equal(out, tk.trilerp_fwd_plain(_t(grid), v)[0])
+    np.testing.assert_allclose(dvol.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
