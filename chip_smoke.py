@@ -43,6 +43,27 @@ prints no result):
    the packed run's final map under each route, timed once, and one query
    of the occupancy field per route, the two fields compared, then
    ``postprocess_mesh`` and ``write_ply`` to a temporary directory.
+6. Adam (after the fused run of phase 4): one frame's Adam solve with
+   ``configs/cofusion.yaml``'s tracking on that run's frame-0 map, on the
+   card and on the CPU with the same injected pixels (poses within 1e-4);
+   K2 launched without the grid gradient only; that launch's ``dv`` on the
+   solve's first tracking batch against its plain version, timed.
+7. async (after phase 6): the fused main path again in
+   ``sync_method="async"`` with the frames through the prefetcher; its
+   trajectory and grids must equal phase 4's bit for bit. Frames 1+ run
+   under ``torch.cuda.set_sync_debug_mode("warn")``: the calls that wait
+   for the stream are printed by call site, beside the seconds per frame
+   of both runs and the peak device memory.
+8. async fault (after phase 5): a short async run (``iters_first`` cut to
+   at most 100) whose first BA mapping event ``fault_hook`` turns to NaN:
+   one ``map_rejected``, a finite map, and right after the rollback the
+   grids, decoders, keyframe DB and the event frame's pose equal to those
+   before the event bit for bit.
+9. command line: ``niceslam_tpu_torch.__main__.main`` on
+   ``configs/cofusion.yaml`` (synthetic scene, async, Adam tracking, 8
+   frames, a checkpoint at frame 4, trajectory, mesh at resolution 64);
+   a restore of the checkpoint equal to the state saved bit for bit; then
+   ``--resume`` from it to frame 8.
 
 ``--profile`` adds a phase after the fused main path: two more every_frame
 groups, the first timed, the second under ``torch.profiler``, for the
@@ -718,18 +739,20 @@ def snapshot(slam) -> dict:
 def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
                     keep: int = 0):
     """``NiceSLAM.step`` over ``n_frames`` under ``route``; with ``keep`` the
-    result holds a :func:`snapshot` after frame ``keep - 1``."""
+    result holds a :func:`snapshot` after frame ``keep - 1`` and the grids
+    after frame 0 (on the host)."""
+    from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY as bwd_tally
     from niceslam_tpu_torch.ops.trilerp_kernels import FWD_TALLY as tally
     from niceslam_tpu_torch.ops.trilinear import sampler_route
 
     slam, reader = new_slam(cfg, n_frames, seed)
     frames = [reader[k] for k in range(n_frames)]
-    kept = None
+    kept = kept0 = None
     tag = f"[{route}] seed {seed}"
     torch.cuda.synchronize()
     start_peak(tag)
-    set_launches({})
-    tally.clear()
+    start_bytes = torch.cuda.memory_allocated()
+    clear_tallies()
     dts = []
     for k, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -745,11 +768,16 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
                 for e in ev[:-1]))
         if k == 0 and route == "packed":
             # Not part of the main path: its launches are taken out again.
-            counts, split = all_launches(), dict(tally)
+            counts, split, split2 = all_launches(), dict(tally), dict(bwd_tally)
             compare_routes_on_map(slam, frame, cfg)
             set_launches(counts)
             tally.clear()
             tally.update(split)
+            bwd_tally.clear()
+            bwd_tally.update(split2)
+        if keep and k == 0:
+            # On the host: not part of the run's device memory.
+            kept0 = {k: v.cpu() for k, v in slam.state.grids.items()}
         if k == keep - 1:
             kept = snapshot(slam)
     peak = torch.cuda.max_memory_allocated()
@@ -761,6 +789,7 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
                                  f"{launches['trilerp_fwd']}")
         log(f"{tag}: K1 launches by variant, derivative output and N: " + ", ".join(
             f"{var} deriv={int(d)} N={n}: {c}" for (var, d, n), c in sorted(tally.items())))
+        log(f"{tag}: K2 launches by need_dgrid: {k2_tally()}")
     log(f"{tag}: peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated)")
     check_route_launches(f"main path {tag}", route, launches)
     res = slam.result()
@@ -780,13 +809,28 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
     log(f"{tag}: tracked frames/s after frame 0: {(len(dts) - 1) / sum(dts[1:]):.4f}")
     log(f"{tag}: position error per frame (cm): {[round(float(e), 2) for e in err_cm]}")
     log(f"{tag}: ATE RMSE over {n_frames} frames: {ate_cm:.4f} cm")
+    log(f"{tag}: sha1 of the poses and the grids: {digest(poses, slam.state.grids)}")
     # Accuracy is judged over seeds, against the tripwire's bounds, by
     # tests/test_torch_slam.py; here only a lost track fails.
     lost = lost_track(ate_cm, err_cm)
     if lost:
         raise AssertionError(f"{tag}: the track is lost: {lost}")
     return dict(launches=launches, slam=slam, reader=reader, ate_cm=ate_cm, dts=dts,
-                peak_bytes=peak, kept=kept, seed=seed, route=route, n_frames=n_frames)
+                peak_bytes=peak, start_bytes=start_bytes, kept=kept, kept0=kept0,
+                seed=seed, route=route, n_frames=n_frames, poses=poses,
+                grids=slam.state.grids)
+
+
+def digest(poses: np.ndarray, grids: dict) -> str:
+    """sha1 of a run's poses (float32) and grids: one seed is one trajectory
+    on the card, so two commits that compute the same bits print the same
+    digest."""
+    import hashlib
+
+    h = hashlib.sha1(np.ascontiguousarray(poses, np.float32).tobytes())
+    for lvl in sorted(grids):
+        h.update(grids[lvl].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def phase_repeat(cfg, run: dict, frames: int):
@@ -930,6 +974,433 @@ def phase_mesher(slam, cfg, resolution: int = 128):
                 f"in {time.perf_counter() - t0:.3f} s")
 
 
+# ------------------------------------------------------------ phases 6-9
+def k2_tally() -> dict:
+    """K2's launches by ``need_dgrid`` since the counts were last cleared."""
+    from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY
+
+    return {f"need_dgrid={d}": c for d, c in sorted(BWD_TALLY.items())}
+
+
+def clear_tallies():
+    from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY, FWD_TALLY
+
+    set_launches({})
+    FWD_TALLY.clear()
+    BWD_TALLY.clear()
+
+
+def state_copy(slam) -> dict:
+    """Copies of the published map (grids, decoders), the keyframe DB and its
+    host mirrors."""
+    from niceslam_tpu_torch.models.decoders import tree_leaves
+
+    kf = dataclasses.asdict(slam.state.keyframes)
+    return dict(
+        grids={k: v.clone() for k, v in slam.state.grids.items()},
+        decoders=[t.clone() for t in tree_leaves(slam.state.decoders)],
+        kf={k: v.clone() if torch.is_tensor(v) else v for k, v in kf.items()},
+        kf_count=slam._kf_count, kf_slots=slam._kf_slot_frame.copy(),
+    )
+
+
+def state_diffs(a: dict, b: dict) -> list:
+    """The names of the parts of two :func:`state_copy` results that differ
+    in any bit."""
+    out = [f"grid {k}" for k in a["grids"] if not torch.equal(a["grids"][k], b["grids"][k])]
+    if len(a["decoders"]) != len(b["decoders"]) or not all(
+            torch.equal(x, y) for x, y in zip(a["decoders"], b["decoders"])):
+        out.append("decoders")
+    for k, v in a["kf"].items():
+        w = b["kf"][k]
+        if not (torch.equal(v, w) if torch.is_tensor(v) else v == w):
+            out.append(f"keyframes.{k}")
+    if a["kf_count"] != b["kf_count"] or not np.array_equal(a["kf_slots"], b["kf_slots"]):
+        out.append("keyframe bookkeeping")
+    return out
+
+
+def phase_adam(run: dict, cfg):
+    """One frame's Adam solve with ``configs/cofusion.yaml``'s tracking (200
+    px, 10 iterations, lr 1e-3, separate learning rates) on the fused strict
+    run's frame-0 map, from frame 0's pose to frame 1, on the card and on the
+    CPU with the same injected pixels; then K2 without the grid gradient
+    (its per-point ``dv`` pass, as the Adam tracker's backward launches it)
+    on the tracking batch of the solve's first iteration, against its plain
+    version."""
+    from niceslam_tpu_torch.config.schema import load_config
+    from niceslam_tpu_torch.models.decoders import tree_map
+    from niceslam_tpu_torch.ops import trilerp_kernels as tk
+    from niceslam_tpu_torch.slam.tracker import track_config, track_frame
+
+    slam, reader = run["slam"], run["reader"]
+    ccfg = load_config(os.path.join(ROOT, "configs", "cofusion.yaml"),
+                       overrides={"tracking.method": "adam"})
+    tcfg = track_config(ccfg.tracking)
+    log(f"adam: tracking config of configs/cofusion.yaml: pixels {tcfg.pixels}, iters "
+        f"{tcfg.iters}, lr {tcfg.lr}, separate_LR {tcfg.separate_LR}")
+    f0, f1 = reader[0], reader[1]
+    rng = np.random.default_rng(4)
+    intr = slam.intr
+    px = [(rng.integers(tcfg.ignore_edge_W, intr.W - tcfg.ignore_edge_W, tcfg.pixels),
+           rng.integers(tcfg.ignore_edge_H, intr.H - tcfg.ignore_edge_H, tcfg.pixels))
+          for _ in range(tcfg.iters)]
+    grids0 = {dev: {k: v.to(dev) for k, v in run["kept0"].items()} for dev in ("cuda", "cpu")}
+    seen = []
+    bwd = tk.trilerp_bwd
+
+    def spy(grid, v, g, need_dgrid=True, need_dv=True):
+        if len(seen) < 3:  # the first iteration's levels: middle, fine, color
+            lvl = next(k for k, t in grids0["cuda"].items() if t.data_ptr() == grid.data_ptr())
+            seen.append((lvl, grid.clone(), v.clone(), g.clone()))
+        return bwd(grid, v, g, need_dgrid, need_dv)
+
+    def solve(dev):
+        to = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt).to(dev)  # noqa: E731
+        return track_frame(
+            tree_map(lambda t: t.to(dev), slam.state.decoders), grids0[dev],
+            {k: v.to(dev) for k, v in slam.bounds.items()}, slam.scene_bound.to(dev), intr,
+            to(f1.color), to(f1.depth), to(f0.gt_c2w), tcfg, slam.rcfg,
+            pixels=[(to(i, torch.long), to(j, torch.long)) for i, j in px],
+        )
+
+    torch.cuda.synchronize()
+    clear_tallies()
+    tk.trilerp_bwd = spy
+    try:
+        pose, losses = solve("cuda")
+        torch.cuda.synchronize()
+    finally:
+        tk.trilerp_bwd = bwd
+    launches, tally = all_launches(), k2_tally()
+    check_route_launches("adam solve", "fused", launches)
+    if set(tally) != {"need_dgrid=False"}:
+        raise AssertionError(f"adam solve: K2 asked for a grid gradient: {tally}")
+    t0 = time.perf_counter()
+    solve("cuda")
+    torch.cuda.synchronize()
+    gn = [e["dt_track"] for e in slam.events
+          if e["event"] == "frame" and e["frame"] > 0 and e["dt_map"] == 0.0]
+    log(f"adam: launches {launches}; K2 by need_dgrid {tally}; one frame's solve again: "
+        f"{time.perf_counter() - t0:.3f} s (GN tracking of the strict run's track-only "
+        f"frames: {gn} s)")
+    t0 = time.perf_counter()
+    cpose, closses = solve("cpu")
+    log(f"adam: the same solve on the CPU in {time.perf_counter() - t0:.3f} s")
+    dpose = max_err(pose.cpu(), cpose)
+    moved = float(np.abs(cpose.numpy() - f0.gt_c2w).max())
+    log(f"adam: pose card vs CPU max abs diff {dpose:.3e} (tolerance 1e-4; the pose "
+        f"moved {moved:.3e} from the warm start); losses card {losses.cpu().numpy()}, "
+        f"CPU {closses.numpy()}; best iterate {int(losses.argmin())} / {int(closses.argmin())}")
+    if not dpose <= 1e-4:
+        raise AssertionError(f"adam: the card's pose differs from the CPU's by {dpose:.3e}")
+    if not moved > 1e-4:
+        raise AssertionError(f"adam: the solve did not move the pose ({moved:.2e})")
+    err_cm = 100 * float(np.linalg.norm(pose.cpu().numpy()[:3, 3] - f1.gt_c2w[:3, 3]))
+    log(f"adam: frame 1 position error {err_cm:.3f} cm (warm start "
+        f"{100 * float(np.linalg.norm(f0.gt_c2w[:3, 3] - f1.gt_c2w[:3, 3])):.3f} cm)")
+
+    rows = []
+    for lvl, grid, v, g in seen:
+        n, C = v.shape[0], grid.shape[-1]
+        name = f"{lvl} tracking batch N={n}"
+        _, dv = tk.trilerp_bwd(grid, v, g, need_dgrid=False)
+        _, rdv = tk.trilerp_bwd_plain(grid, v, g, need_dgrid=False)
+        torch.cuda.synchronize()
+        check_close(f"trilerp_bwd dv only [{name}]", dv, rdv, 2e-5, 2e-5)
+        vol, nrm = grid_sample_inputs(grid, v)
+        lib_gout = g.t().reshape(1, C, n, 1, 1).contiguous()
+        touched = corner_rows_touched(grid, v)
+        bms, by = bound_ms(4 * (touched * C + 3 * n + n * C + 3 * n),
+                           n * C * (FWD_OPS + DERIV_OPS + 6))
+        rows.append(dict(
+            name="trilerp_bwd", case=f"{name} need_dgrid=0", points="tracking",
+            max_abs_err=max_err(dv, rdv),
+            ms=device_ms(lambda: tk.trilerp_bwd(grid, v, g, need_dgrid=False)),
+            plain_ms=device_ms(lambda: tk.trilerp_bwd_plain(grid, v, g, need_dgrid=False),
+                               reps=10),
+            library_ms=device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+                lib_gout, vol, nrm, 0, 1, True, [False, True])),
+            bound_ms=bms, bound_by=by, extra=f"{touched} rows touched"))
+    for r in rows:
+        log(f"kernel {r['name']:<15} {r['case']:<48} max_abs_err {r['max_abs_err']:.3e}  "
+            f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f}"
+            f"  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  [{r['extra']}]")
+    return rows
+
+
+def sync_site(filename: str, lineno: int) -> str:
+    """Where a call that waited for the stream was made: the innermost frame
+    of the package on the stack, else of this repository (``file:line``),
+    and the library's line that reported it where that is another."""
+    import traceback
+
+    here = f"{os.path.relpath(filename, ROOT)}:{lineno}"
+    stack = traceback.extract_stack()[:-2]  # without this function and its caller
+    for prefix in (os.path.join(ROOT, "niceslam_tpu_torch"), ROOT):
+        for fr in reversed(stack):
+            if fr.filename.startswith(prefix):
+                site = f"{os.path.relpath(fr.filename, ROOT)}:{fr.lineno}"
+                return site if site == here else f"{site} ({os.path.basename(filename)}:{lineno})"
+    return here
+
+
+def phase_async(cfg, strict: dict):
+    """The main path in ``sync_method="async"`` (fused route, frames through
+    the prefetcher): its flushed trajectory and map must equal the strict
+    run's bit for bit. Frames 1+ run under ``set_sync_debug_mode("warn")``:
+    each call that waits for the stream is counted by call site; every read
+    of a deferred host copy is counted, and whether it had to wait."""
+    import warnings
+    from collections import Counter
+
+    from niceslam_tpu_torch.core.transfer import HostCopy
+    from niceslam_tpu_torch.io.prefetch import Prefetcher
+
+    n = strict["n_frames"]
+    acfg = dataclasses.replace(cfg, sync_method="async")
+    slam, reader = new_slam(acfg, n, 0)
+    tag = "[fused] async seed 0"
+    reads = Counter()
+    numpy = HostCopy.numpy
+
+    def counted(self):
+        reads["waited" if self.event is not None and not self.event.query() else "ready"] += 1
+        return numpy(self)
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            sites[sync_site(filename, lineno)] += 1
+
+    torch.cuda.synchronize()
+    start_peak(tag)
+    start = torch.cuda.memory_allocated()
+    clear_tallies()
+    dts, sites = [], Counter()
+    pf = Prefetcher(reader, device="cuda", end=n)
+    HostCopy.numpy = counted
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            for k, frame in enumerate(pf):
+                if k == 1:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    warnings.showwarning = record
+                    torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                slam.step(frame)
+                if k == 0:
+                    torch.cuda.synchronize()
+                dts.append(time.perf_counter() - t0)
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        HostCopy.numpy = numpy
+        pf.close()
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches()
+    check_route_launches(f"main path {tag}", "fused", launches)
+    res = slam.result()
+    poses = np.stack(res["est_c2w"])
+    log(f"{tag}: host seconds per frame (frame 0 to the card's end, then queueing only): "
+        f"{[round(d, 4) for d in dts]}")
+    log(f"{tag}: frames 1-{n - 1}: {wall:.3f} s to the card's end (strict: "
+        f"{sum(strict['dts'][1:]):.3f} s; per frame {[round(d, 4) for d in strict['dts']]})")
+    log(f"{tag}: calls that waited for the stream in frames 1-{n - 1}: "
+        f"{sum(sites.values())} {dict(sites.most_common())}")
+    log(f"{tag}: deferred host copies read: {dict(reads)}")
+    log(f"{tag}: peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated), "
+        f"{(peak - start) / 2**20:.1f} MiB over the start (strict: "
+        f"{(strict['peak_bytes'] - strict['start_bytes']) / 2**20:.1f}); "
+        f"launches {launches}; K2 by need_dgrid {k2_tally()}")
+    if not np.array_equal(poses, strict["poses"]):
+        raise AssertionError(f"{tag}: the trajectory differs from the strict run's "
+                             f"(max abs diff {np.abs(poses - strict['poses']).max():.3e})")
+    diffs = [lvl for lvl, g in slam.state.grids.items()
+             if not torch.equal(g, strict["grids"][lvl])]
+    if diffs:
+        raise AssertionError(f"{tag}: grids {diffs} differ from the strict run's")
+    rejected = [e for e in slam.events if e["event"] == "map_rejected"]
+    if rejected:
+        raise AssertionError(f"{tag}: mapping passes rejected: {rejected}")
+    log(f"{tag}: trajectory and grids equal to the strict run's bit for bit; ATE "
+        f"{100 * res['ate_rmse']:.4f} cm")
+    return dict(wall=wall, sites=sites, peak_bytes=peak, dts=dts)
+
+
+def phase_async_fault(cfg, n_frames: int, iters_first: int):
+    """A short async run in which ``fault_hook`` turns one BA mapping event's
+    outputs (grids, cameras, losses) to NaN: the event must be rejected at
+    the next one, the map stay finite, and the state right after the
+    rollback equal the state before the event bit for bit."""
+    fault_at = cfg.mapping.bootstrap_frames  # the first event with BA
+    log(f"cut: async fault run: mapping.iters_first {cfg.mapping.iters_first} -> "
+        f"{iters_first}, {n_frames} frames, NaN outputs of the event at frame {fault_at}")
+    acfg = dataclasses.replace(cfg, sync_method="async", mapping=dataclasses.replace(
+        cfg.mapping, iters_first=iters_first))
+    slam, reader = new_slam(acfg, n_frames, 0)
+    saved, faults = {}, []
+
+    def corrupt(idx, outs):
+        grids, decoders, cams, losses = outs
+        if idx == fault_at:
+            faults.append(idx)
+            grids = {k: g * float("nan") for k, g in grids.items()}
+            cams, losses = cams * float("nan"), losses * float("nan")
+        return grids, decoders, cams, losses
+
+    map_frame, verify = slam.map_frame, slam._verify_pending
+
+    def spy_map_frame(frame, first=False):
+        if len(slam.est_c2w) - 1 == fault_at:
+            saved["pre"] = state_copy(slam)
+            saved["pose"] = slam.est_c2w[fault_at].clone()
+            saved["ba"] = slam._kf_count > acfg.mapping.BA_min_keyframes
+        map_frame(frame, first)
+
+    def spy_verify():
+        k = len(slam.events)
+        verify()
+        if any(e["event"] == "map_rejected" for e in slam.events[k:]):
+            saved["post"] = state_copy(slam)
+            saved["post_pose"] = slam.est_c2w[fault_at].clone()
+
+    slam.fault_hook = corrupt
+    slam.map_frame, slam._verify_pending = spy_map_frame, spy_verify
+    t0 = time.perf_counter()
+    clear_tallies()
+    res = slam.run(n_frames)
+    launches = all_launches()
+    check_route_launches("async fault run", "fused", launches)
+    rejected = [e for e in slam.events if e["event"] == "map_rejected"]
+    log(f"async fault: {n_frames} frames in {time.perf_counter() - t0:.3f} s; faulted "
+        f"passes {faults}; BA in the event {saved.get('ba')}; rejected {rejected}")
+    if not (faults and len(rejected) == 1 and rejected[0]["frame"] == fault_at):
+        raise AssertionError(f"async fault: want one map_rejected at frame {fault_at}, "
+                             f"got {rejected}")
+    if "post" not in saved or not saved["ba"]:
+        raise AssertionError("async fault: no rollback seen, or no BA in the faulty event")
+    diffs = state_diffs(saved["post"], saved["pre"])
+    if diffs or not torch.equal(saved["post_pose"], saved["pose"]):
+        raise AssertionError(f"async fault: after the rollback {diffs or 'the pose'} "
+                             f"differ from the pre-event state")
+    poses = np.stack(res["est_c2w"])
+    if not (np.isfinite(poses).all() and bool(torch.isfinite(slam.state.keyframes.est_c2w).all())
+            and all(bool(torch.isfinite(g).all()) for g in slam.state.grids.values())):
+        raise AssertionError("async fault: non-finite map or poses after the rollback")
+    log(f"async fault: after the rollback the grids, decoders, keyframe DB (with the BA "
+        f"poses) and the event frame's pose equal the pre-event state bit for bit; map "
+        f"and poses finite; ATE {100 * res['ate_rmse']:.4f} cm")
+
+
+def ply_counts(path: str):
+    """(vertices, faces) from an ASCII PLY header."""
+    counts = {}
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("element"):
+                _, kind, k = line.split()
+                counts[kind] = int(k)
+            if line.startswith("end_header"):
+                break
+    return counts.get("vertex", 0), counts.get("face", 0)
+
+
+def phase_cli(frames: int = 8):
+    """``python -m niceslam_tpu_torch`` in-process: ``configs/cofusion.yaml``
+    on the synthetic scene, async, Adam tracking, a checkpoint every 4
+    frames, trajectory and mesh; then a resume from the frame-4 checkpoint.
+    The state the first run saved must equal a restore of it bit for bit."""
+    import contextlib
+    import io
+
+    import niceslam_tpu_torch.__main__ as cli
+    from niceslam_tpu_torch.config.schema import load_config
+    from niceslam_tpu_torch.slam.system import NiceSLAM
+
+    overrides = ["dataset=synthetic", "sync_method=async", "tracking.method=adam",
+                 "mapping.ckpt_freq=4", "meshing.clean_mesh=false"]
+    log("cli: meshing.clean_mesh=false: the cleanup culls the whole mesh of the synthetic "
+        "scene (its frustum test takes camera z forward; ROADMAP, queue 3)")
+    saved = {}
+    save = cli.save_checkpoint
+
+    def capture(path, state, est_c2w, gt_c2w, frame_idx, **kw):
+        save(path, state, est_c2w, gt_c2w, frame_idx, **kw)
+        saved[path] = dict(state=state_copy(_Holder(state)), poses=np.stack(est_c2w))
+
+    config = os.path.join(ROOT, "configs", "cofusion.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(extra, tag):
+            argv = [config, "--frames", str(frames),
+                    "--log", os.path.join(tmp, f"{tag}.jsonl"),
+                    "--ckpt-dir", os.path.join(tmp, "ck"),
+                    "--trajectory", os.path.join(tmp, f"{tag}.npy"),
+                    "--mesh", os.path.join(tmp, f"{tag}.ply"), "--mesh-resolution", "64",
+                    *extra]
+            for o in overrides:
+                argv += ["--set", o]
+            out = io.StringIO()
+            clear_tallies()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            dt = time.perf_counter() - t0
+            launches = all_launches()
+            lines = out.getvalue().strip().splitlines()
+            last = json.loads(lines[-1])
+            log(f"cli [{tag}]: rc {rc} in {dt:.1f} s; {lines[-2]}; last line {lines[-1]}; "
+                f"launches {launches}; K2 by need_dgrid {k2_tally()}")
+            check_route_launches(f"cli [{tag}]", "fused", launches)
+            traj = np.load(os.path.join(tmp, f"{tag}.npy"))
+            nv, nf = ply_counts(os.path.join(tmp, f"{tag}.ply"))
+            if not (rc == 0 and set(last) == {"frames", "fps_avg", "ate_rmse_cm"}
+                    and last["frames"] == frames and traj.shape == (frames, 4, 4)
+                    and np.isfinite(traj).all() and nv > 0 and nf > 0):
+                raise AssertionError(f"cli [{tag}]: rc {rc}, last line {last}, trajectory "
+                                     f"{traj.shape}, mesh {nv} verts {nf} faces")
+            log(f"cli [{tag}]: {frames} finite poses, mesh {nv} verts {nf} faces; Adam's ATE "
+                f"{last['ate_rmse_cm']} cm")
+            return traj
+
+        cli.save_checkpoint = capture
+        try:
+            traj = run([], "run")
+        finally:
+            cli.save_checkpoint = save
+        ck = os.path.join(tmp, "ck", "frame_000004")
+        if list(saved) != [ck]:
+            raise AssertionError(f"cli: checkpoints written {list(saved)}, want [{ck}]")
+        fresh = NiceSLAM(load_config(config, overrides=cli.parse_overrides(overrides)))
+        start = fresh.restore(ck)
+        diffs = state_diffs(state_copy(fresh), saved[ck]["state"])
+        if start != 5 or diffs or not np.array_equal(np.stack(fresh.est_c2w),
+                                                     saved[ck]["poses"]):
+            raise AssertionError(f"cli: restore of {ck} (next frame {start}) differs from the "
+                                 f"saved state: {diffs or 'poses'}")
+        log(f"cli: a restore of {os.path.basename(ck)} equals the state that was saved bit for bit: grids, decoders, keyframe DB, "
+            f"its bookkeeping, poses")
+        del fresh
+        traj2 = run(["--resume", ck], "resume")
+        if not np.array_equal(traj2[:5], traj[:5]):
+            raise AssertionError("cli: the resumed trajectory does not start with the "
+                                 "saved one")
+
+
+class _Holder:
+    """A ``NiceSLAM``-shaped view of a saved ``MapState`` for
+    :func:`state_copy` (the host mirrors rebuilt from the DB, as ``restore``
+    does)."""
+
+    def __init__(self, state):
+        self.state = state
+        self._kf_count = int(state.keyframes.count)
+        self._kf_slot_frame = state.keyframes.frame_idx.cpu().numpy().astype(np.int64)
+
+
 # ------------------------------------------------------- optional profile
 def phase_profile(slam, reader, group: int):
     """Where the time of a steady-state every_frame group goes (tracking-only
@@ -998,9 +1469,11 @@ def main():
     repeat = min(2, args.frames)
     runs = {"fused": phase_main_path(cfg, args.frames, keep=repeat)}
     phase_repeat(cfg, runs["fused"], repeat)
+    rows += phase_adam(runs["fused"], cfg)
     if args.profile:
         phase_profile(runs["fused"]["slam"], runs["fused"]["reader"], cfg.mapping.every_frame)
-    del runs["fused"]["slam"]  # the packed run's peak memory is its own
+    del runs["fused"]["slam"]  # the later runs' peak memory is their own
+    phase_async(cfg, runs["fused"])
     runs["packed"] = phase_main_path(cfg, args.frames, route="packed")
     for route, run in runs.items():
         log(f"routes: [{route}] frame seconds {[round(d, 4) for d in run['dts']]}, "
@@ -1010,6 +1483,12 @@ def main():
     phase_mesher(runs["packed"]["slam"], cfg)
     log(f"mesher phase: {time.perf_counter() - t0:.1f} s")
     del runs["packed"]["slam"]
+    t0 = time.perf_counter()
+    phase_async_fault(cfg, args.frames, min(args.iters_first, 100))
+    log(f"async fault phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_cli()
+    log(f"cli phase: {time.perf_counter() - t0:.1f} s")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]
     log(f"ATE per seed (cm), fused route: {[round(a, 4) for a in ates]}, "

@@ -1,14 +1,20 @@
-"""Typed configuration: the dataclasses behind ``SLAMConfig``.
+"""Typed configuration: the dataclasses behind ``SLAMConfig`` and the YAML
+loader.
 
-A copy of the configuration dataclasses of the JAX package
-(``niceslam_tpu/config/schema.py``) with the same field names and defaults,
-so that a configuration written for one package transcribes one to one. The
-YAML overlay loader is not part of this package yet.
+A copy of the JAX package's configuration (``niceslam_tpu/config/schema.py``)
+with the same field names and defaults, so that a configuration written for
+one package loads into the other unchanged: ``inherit_from`` chains, dotted
+overrides, the upstream key aliases and the ``data:`` /
+``pretrained_decoders:`` blocks. An unknown key raises ``KeyError`` naming it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import dataclasses
+from dataclasses import dataclass, fields
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import yaml
 
 
 @dataclass(frozen=True)
@@ -34,7 +40,8 @@ class TrackingConfig:
     w_color_loss: float = 0.5
     seperate_LR: bool = False  # (sic) upstream key spelling
     depth_err_gate: float = 0.3
-    # Pose solver. Only "gn" (Gauss-Newton/IRLS) is implemented here.
+    # Pose solver: "gn" (Gauss-Newton/IRLS) or "adam" (the reference's
+    # first-order loop); see slam/tracker.py.
     method: str = "gn"
     gn_prior_sigma_r: float = 0.02
     gn_prior_sigma_t: float = 0.03
@@ -134,26 +141,41 @@ class GridLenConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Multi-device layout. This package runs one device: ``NiceSLAM``
+    refuses any value but the defaults (ROADMAP, the multi-device slice)."""
+
+    n_processes: int = 1
+    coordinator: str = "localhost:9991"
+    kf: int = 0
+    map: int = 1
+    stage_ep: bool = False
+    track_role: bool = False
+
+
+@dataclass(frozen=True)
 class MeshingConfig:
     """Offline mesher options (``eval/mesher.py``): the isosurface level and
-    the cleanup of ``postprocess_mesh``. The JAX schema's options that no
-    code of this package reads are left out until their code is ported."""
+    the cleanup of ``postprocess_mesh``."""
 
     level_set: float = 0.0
+    resolution: int = 256
+    eval_rec: bool = False
     # Cull mesh geometry never observed by the trajectory (project every
     # vertex into each camera; keep faces with a frustum-visible vertex).
     clean_mesh: bool = True
     # Additionally require vertices to pass the per-view depth test
     # (not behind the observed surface by > its depth x (scale - 1)).
     depth_test: bool = False
+    mesh_coarse_level: bool = False
     clean_mesh_bound_scale: float = 1.02
     get_largest_components: bool = False
+    color_mesh_extraction_method: str = "direct_point_query"
 
 
 @dataclass(frozen=True)
 class SLAMConfig:
-    """Top-level system config. Only ``sync_method="strict"`` on one
-    device is implemented by this package's driver."""
+    """Top-level system config."""
 
     coarse: bool = True
     sync_method: str = "strict"
@@ -174,6 +196,117 @@ class SLAMConfig:
     tracking: TrackingConfig = TrackingConfig()
     mapping: MappingConfig = MappingConfig()
     rendering: RenderingConfig = RenderingConfig()
+    parallel: ParallelConfig = ParallelConfig()
     meshing: MeshingConfig = MeshingConfig()
     pretrained_coarse: str = ""
     pretrained_middle_fine: str = ""
+
+
+_NESTED = {
+    "grid_len": GridLenConfig,
+    "model": ModelConfig,
+    "cam": CamConfig,
+    "tracking": TrackingConfig,
+    "mapping": MappingConfig,
+    "rendering": RenderingConfig,
+    "parallel": ParallelConfig,
+    "meshing": MeshingConfig,
+}
+
+_KEY_ALIASES = {
+    # upstream yaml key -> dataclass field
+    "hidden": "hidden_size",
+}
+
+
+def _build(cls, data: Dict[str, Any]):
+    """Construct a dataclass from a dict, validating keys."""
+    valid = {f.name: f for f in fields(cls)}
+    kwargs = {}
+    for k, v in data.items():
+        k = _KEY_ALIASES.get(k, k)
+        if k == "stage" and cls is MappingConfig:
+            for s, lrs in v.items():
+                kwargs[f"stage_{s}"] = _build(StageLR, lrs)
+            continue
+        if k not in valid:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        f = valid[k]
+        if dataclasses.is_dataclass(f.type) or f.name in _NESTED:
+            kwargs[k] = _build(_NESTED[f.name], v)
+        elif f.name == "bound":
+            kwargs[k] = tuple(tuple(float(x) for x in row) for row in v)
+        else:
+            kwargs[k] = v
+    return cls(**kwargs)
+
+
+def _deep_merge(base: Dict[str, Any], over: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _apply_overrides(data: Dict[str, Any], overrides: Dict[str, Any]):
+    for dotted, v in overrides.items():
+        node = data
+        parts = dotted.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return data
+
+
+def _load_chain(p: Path) -> Dict[str, Any]:
+    """A config file with its ``inherit_from`` chain resolved, recursively
+    (``cofusion_synth849.yaml`` -> ``cofusion.yaml`` -> ``niceslam.yaml``)."""
+    with open(p) as f:
+        d = yaml.safe_load(f) or {}
+    parent = d.pop("inherit_from", None)
+    if parent is not None:
+        d = _deep_merge(_load_chain(Path(p).parent / parent), d)
+    return d
+
+
+def load_config(
+    path: str | Path | None = None,
+    base: str | Path | None = None,
+    overrides: Optional[Dict[str, Any]] = None,
+) -> SLAMConfig:
+    """Load a dataset config, overlaying it on a base algorithm config.
+
+    ``path`` may declare ``inherit_from: <relative path>``; explicit ``base``
+    wins over that. Overrides use dotted paths: ``{"tracking.lr": 0.01}``.
+    """
+    data: Dict[str, Any] = {}
+    if path is not None:
+        data = _load_chain(Path(path))
+    if base is not None:
+        data = _deep_merge(_load_chain(Path(base)), data)
+    if overrides:
+        data = _apply_overrides(data, overrides)
+    # Alternate key spellings and upstream keys that mean nothing here.
+    for blk in ("tracking", "mapping"):
+        blk_d = data.get(blk)
+        if isinstance(blk_d, dict):
+            blk_d.pop("device", None)
+            for k in ("no_mesh_on_first_frame", "no_log_on_first_frame",
+                      "save_selected_keyframes_info", "vis_inside_freq"):
+                if blk != "tracking" or k != "vis_inside_freq":
+                    blk_d.pop(k, None)
+    if isinstance(data.get("data"), dict):
+        d = data.pop("data")
+        if "input_folder" in d:
+            data["data_input_folder"] = d["input_folder"]
+        if "output" in d:
+            data["output"] = d["output"]
+    if isinstance(data.get("pretrained_decoders"), dict):
+        pd = data.pop("pretrained_decoders")
+        data["pretrained_coarse"] = pd.get("coarse", "")
+        data["pretrained_middle_fine"] = pd.get("middle_fine", "")
+    data.pop("low_gpu_mem", None)
+    return _build(SLAMConfig, data)

@@ -2,7 +2,8 @@
 
 ``occupancy=True``: ``alpha = sigmoid(10 * occ)``; ``occupancy=False``
 (NeRF density): ``alpha = 1 - exp(-relu(occ) * dist)``. Transmittance is the
-exclusive cumulative product of ``1 - alpha + 1e-10``.
+exclusive cumulative product of ``1 - alpha + 1e-10``, whose factors are
+never zero, so :func:`cumprod_nonzero` computes it.
 """
 from __future__ import annotations
 
@@ -24,6 +25,41 @@ class RenderOutputs(NamedTuple):
     sample_valid: Optional[torch.Tensor] = None  # [N, S] bool
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod(x, dim=-1)`` of an ``x`` without zeros, with the
+    derivative formulas torch uses for that case, op for op (the same bits),
+    but without torch's host-side test ``(x == 0).any()`` in the backward,
+    which waits for the stream on every backward pass."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.cumprod(x, dim=-1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        (x,) = inputs
+        ctx.save_for_backward(x, output)
+        ctx.save_for_forward(x, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+    @staticmethod
+    def jvp(ctx, x_t):
+        x, out = ctx.saved_tensors
+        return (x_t / x).cumsum(-1) * out
+
+
+def cumprod_nonzero(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative product over the last axis of ``x``, whose entries must be
+    non-zero; differentiable in reverse and forward mode."""
+    return _CumprodNonzero.apply(x)
+
+
 def raw_to_outputs(
     raw: torch.Tensor,
     z_vals: torch.Tensor,
@@ -43,9 +79,8 @@ def raw_to_outputs(
         alpha = 1.0 - torch.exp(-torch.relu(occ) * dists)
 
     one_minus = 1.0 - alpha + 1e-10
-    transmittance = torch.cumprod(
-        torch.cat([torch.ones_like(one_minus[..., :1]), one_minus[..., :-1]], dim=-1),
-        dim=-1,
+    transmittance = cumprod_nonzero(
+        torch.cat([torch.ones_like(one_minus[..., :1]), one_minus[..., :-1]], dim=-1)
     )
     weights = alpha * transmittance
 

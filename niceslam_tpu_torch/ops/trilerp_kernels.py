@@ -25,7 +25,8 @@ into ``<repo>/build/kernels/`` (one shared library per source digest) and
 bound with ``ctypes``. :func:`build` and :func:`load_library` serve every
 ``csrc/*.cu`` of the package (and the ``csrc/*.cuh`` they include).
 ``LAUNCHES`` counts each kernel's launches; ``FWD_TALLY`` splits K1's by
-the variant launched, derivative output and number of points.
+the variant launched, derivative output and number of points, and
+``BWD_TALLY`` K2's by whether the grid gradient was asked for.
 """
 from __future__ import annotations
 
@@ -43,6 +44,9 @@ import torch
 LAUNCHES = {"trilerp_fwd": 0, "trilerp_bwd": 0}
 # K1's launches by (variant, deriv, N); their sum is LAUNCHES["trilerp_fwd"].
 FWD_TALLY: Counter = Counter()
+# K2's launches by need_dgrid (False: the per-point dv pass only, as when
+# the grid is not differentiated); their sum is LAUNCHES["trilerp_bwd"].
+BWD_TALLY: Counter = Counter()
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SRC = CSRC / "trilerp.cu"
@@ -58,6 +62,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     FWD_TALLY.clear()
+    BWD_TALLY.clear()
 
 
 def find_nvcc() -> str:
@@ -313,6 +318,7 @@ def trilerp_bwd(
         )
     _launch_check(rc, "trilerp_bwd")
     LAUNCHES["trilerp_bwd"] += 1
+    BWD_TALLY[need_dgrid] += 1
     return dgrid, dv
 
 

@@ -65,15 +65,21 @@ def frustum_voxel_mask(
     pose_valid: torch.Tensor,  # [F] bool
     depths: torch.Tensor,  # [F, H, W]
     intr: Intrinsics,
-    level_bound: torch.Tensor,  # [3, 2]
+    level_bound,  # [3, 2] on the host: numpy or a CPU tensor
     grid_shape_zyx: Tuple[int, int, int],
 ) -> torch.Tensor:
-    """[Z, Y, X] bool: voxels seen by at least one valid window frame."""
+    """[Z, Y, X] bool: voxels seen by at least one valid window frame.
+
+    ``level_bound`` is read as host numbers: reading them from a card
+    tensor would wait for the stream."""
     nz, ny, nx = grid_shape_zyx
     dev = poses.device
-    xs = torch.linspace(float(level_bound[0, 0]), float(level_bound[0, 1]), nx, device=dev)
-    ys = torch.linspace(float(level_bound[1, 0]), float(level_bound[1, 1]), ny, device=dev)
-    zs = torch.linspace(float(level_bound[2, 0]), float(level_bound[2, 1]), nz, device=dev)
+    (x0, x1), (y0, y1), (z0, z1) = (
+        (float(level_bound[a][0]), float(level_bound[a][1])) for a in range(3)
+    )
+    xs = torch.linspace(x0, x1, nx, device=dev)
+    ys = torch.linspace(y0, y1, ny, device=dev)
+    zs = torch.linspace(z0, z1, nz, device=dev)
     Z, Y, X = torch.meshgrid(zs, ys, xs, indexing="ij")
     pts = torch.stack([X, Y, Z], dim=-1).reshape(-1, 3)
 
@@ -92,9 +98,10 @@ def frustum_voxel_mask(
 
 
 def frustum_masks_for_levels(
-    poses, pose_valid, depths, intr, bounds: Dict[str, torch.Tensor], grids
+    poses, pose_valid, depths, intr, bounds, grids
 ) -> Dict[str, torch.Tensor]:
-    """Per-level [Z, Y, X, 1] float masks for gradient gating."""
+    """Per-level [Z, Y, X, 1] float masks for gradient gating; ``bounds``
+    holds each level's ``[3, 2]`` bound on the host."""
     return {
         lvl: frustum_voxel_mask(
             poses, pose_valid, depths, intr, bounds[lvl], tuple(g.shape[:3])

@@ -30,6 +30,7 @@ import torch
 from ..config.schema import StageLR
 from ..core.pose import camera_from_tensor, to_homogeneous
 from ..core.rays import Intrinsics, pixel_dirs
+from ..core.transfer import to_device
 from ..models.decoders import tree_leaves
 from ..render.renderer import RenderConfig, render_rays
 
@@ -192,14 +193,13 @@ def chunked_schedule(
 # ------------------------------------------------------------------ the loss
 def draw_mapping_pixels(
     gen: Optional[torch.Generator],
-    frame_valid: np.ndarray,
+    valid_idx: torch.Tensor,
     n: int,
     intr: Intrinsics,
     device,
 ):
     """``(fidx, i, j)``: each ray's window frame uniformly over the valid
-    slots, and a uniform pixel."""
-    valid_idx = torch.as_tensor(np.flatnonzero(frame_valid), device=device)
+    slots ``valid_idx``, and a uniform pixel."""
     k = torch.randint(0, len(valid_idx), (n,), generator=gen, device=device)
     j = torch.randint(0, intr.H, (n,), generator=gen, device=device)
     i = torch.randint(0, intr.W, (n,), generator=gen, device=device)
@@ -342,6 +342,27 @@ def init_opt_state(pp: PassParams) -> AdamState:
     )
 
 
+def adam_moments_(mu: torch.Tensor, nu: torch.Tensor, g: Optional[torch.Tensor]) -> None:
+    """``scale_by_adam``'s moment updates in place; ``g=None`` is a zero
+    gradient (the moments only decay)."""
+    if g is None:
+        mu.mul_(ADAM_B1)
+        nu.mul_(ADAM_B2)
+    else:
+        mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+        nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+
+
+def adam_direction(mu: torch.Tensor, nu: torch.Tensor, count: int) -> torch.Tensor:
+    """``scale_by_adam``'s bias-corrected update at step ``count`` (from 1)."""
+    # Bias corrections in float32, as optax computes them (1 - b2 in float32
+    # differs from the float64 value by ~1e-5 relative at count 1).
+    k = np.float32(count)
+    bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** k)
+    bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** k)
+    return (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+
+
 @torch.no_grad()
 def adam_update(
     pp: PassParams,
@@ -355,20 +376,10 @@ def adam_update(
     """One ``scale_by_adam`` step on unmasked grads, then
     ``p -= lr * update * mask`` per group, in place."""
     state.count += 1
-    # Bias corrections in float32, as optax computes them (1 - b2 in float32
-    # differs from the float64 value by ~1e-5 relative at count 1).
-    k = np.float32(state.count)
-    bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** k)
-    bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** k)
     for p, g, mu, nu, (kind, lvl) in zip(
         pp.leaves, grads, state.mu, state.nu, pp.groups
     ):
-        if g is None:  # a leaf this stage does not touch: zero gradient
-            mu.mul_(ADAM_B1)
-            nu.mul_(ADAM_B2)
-        else:
-            mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-            nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+        adam_moments_(mu, nu, g)  # g None: a leaf this stage does not touch
         if kind == "grids":
             lr = float(lr_grids[LEVEL_ORDER.index(lvl)])
         elif kind == "decoders":
@@ -377,7 +388,7 @@ def adam_update(
             lr = float(lr_cam)
         if lr == 0.0:
             continue
-        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        upd = adam_direction(mu, nu, state.count)
         if kind == "grids" and grid_masks is not None:
             upd = upd * grid_masks[lvl]
         p.sub_(lr * upd)
@@ -407,8 +418,9 @@ def run_schedule(
     by default each active row draws from ``gen``.
     """
     dev = colors.device
-    valid_t = torch.as_tensor(frame_valid, device=dev)
-    fixed_t = torch.as_tensor(cam_fixed, device=dev)
+    valid_t = to_device(frame_valid, dev)
+    fixed_t = to_device(cam_fixed, dev)
+    valid_idx = to_device(np.flatnonzero(frame_valid), dev)
     masks = grid_masks if pcfg.frustum else None
     losses = []
     for r in range(len(sched)):
@@ -419,7 +431,7 @@ def run_schedule(
         if pixels is not None:
             fidx, i, j = pixels[int(sched.iter_idx[r])]
         else:
-            fidx, i, j = draw_mapping_pixels(gen, frame_valid, pcfg.n_pixels, intr, dev)
+            fidx, i, j = draw_mapping_pixels(gen, valid_idx, pcfg.n_pixels, intr, dev)
         loss = mapping_loss(
             pp.params, bounds, scene_bound, intr, colors, depths, valid_t,
             fixed_t, fidx, i, j, stage, pcfg.w_color_loss, rcfg,

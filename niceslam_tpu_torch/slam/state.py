@@ -3,7 +3,8 @@
 The keyframe database is a fixed-capacity ring buffer of device tensors
 (slot = count % capacity), written in place. ``MapState`` bundles the grids,
 decoders and keyframes with a version that the driver bumps on every
-mapping event.
+mapping event. :func:`snapshot_keyframes` and :func:`restore_keyframes`
+take one event's writes back (the async sync mode's rollback).
 """
 from __future__ import annotations
 
@@ -58,9 +59,50 @@ def add_keyframe(
     db.depths[slot] = depth
     db.est_c2w[slot] = est_c2w
     db.gt_c2w[slot] = gt_c2w
-    db.frame_idx[slot] = int(frame_idx)
+    # fill_ passes the index as a kernel argument; assigning a Python int
+    # would copy it from the host and wait for the stream.
+    db.frame_idx[slot].fill_(int(frame_idx))
     db.count += 1
     return db
+
+
+@dataclass
+class KeyframeSnapshot:
+    """What one mapping event can change in a :class:`KeyframeDB`: every
+    pose (BA writes them back), the frame indices, the count, and the one
+    slot that the event's keyframe admission would overwrite."""
+
+    est_c2w: torch.Tensor
+    frame_idx: torch.Tensor
+    count: int
+    slot: int
+    color: torch.Tensor
+    depth: torch.Tensor
+    gt_c2w: torch.Tensor
+
+
+def snapshot_keyframes(db: KeyframeDB) -> KeyframeSnapshot:
+    """Copies of the parts of ``db`` an event can write: ``[K, 4, 4]`` poses,
+    ``[K]`` indices and slot ``count % capacity`` (one RGB-D image), not the
+    whole ring of images."""
+    s = db.count % db.capacity
+    return KeyframeSnapshot(
+        est_c2w=db.est_c2w.clone(), frame_idx=db.frame_idx.clone(), count=db.count,
+        slot=s, color=db.colors[s].clone(), depth=db.depths[s].clone(),
+        gt_c2w=db.gt_c2w[s].clone(),
+    )
+
+
+def restore_keyframes(db: KeyframeDB, snap: KeyframeSnapshot) -> None:
+    """Write ``snap`` back into ``db`` in place: the DB as it was when the
+    snapshot was taken, provided at most one keyframe was admitted since."""
+    s = snap.slot
+    db.est_c2w.copy_(snap.est_c2w)
+    db.frame_idx.copy_(snap.frame_idx)
+    db.colors[s] = snap.color
+    db.depths[s] = snap.depth
+    db.gt_c2w[s] = snap.gt_c2w
+    db.count = snap.count
 
 
 @dataclass

@@ -1,16 +1,30 @@
-"""NiceSLAM system driver: the per-frame track/map loop (strict sync, one device).
+"""NiceSLAM: the per-frame track/map loop on one device.
 
     frame 0:     mapper initialization (iters_first, lr_first_factor)
-    every frame: track (Gauss-Newton, warm-started by the constant-speed model)
+    every frame: track (Gauss-Newton or Adam, warm-started by the
+                 constant-speed model)
     bootstrap frames, every `every_frame`-th frame and the last frame:
                  coarse mapper pass, then the staged pass; optional re-track
                  of the event frame on the fresh map; keyframe admission
     last frame:  optional color-refinement passes
 
-Strict sync: the tracker always reads the mapper's latest published map, and
-each mapping pass is checked (finite final loss) before it is published; a
-diverged pass is rejected and the map stays as it was (the NaN guard). A
-pass optimizes clones of the published tensors, so rejecting it is free.
+Sync methods (``cfg.sync_method``), which change when the host waits for
+the card, never the math:
+
+- ``"strict"``: the host reads each tracked pose and each mapping pass's
+  losses back at once. A pass is checked (finite final loss) before it is
+  published; a diverged pass is rejected and the map stays as it was (the
+  NaN guard). A pass optimizes clones of the published tensors, so
+  rejecting it is free.
+- ``"async"``: the upstream concurrent tracker/mapper semantics. Poses stay
+  tensors on the device and every pass is published at once; each event's
+  loss tails are copied to the host without waiting
+  (:class:`~..core.transfer.HostCopy`) and checked at the next event or at
+  :meth:`NiceSLAM.flush`. If any pass of an event diverged, the WHOLE event
+  rolls back: grids, decoders, the keyframe DB and its host mirrors, the
+  observed-voxel counts, the event frame's pose, and any later non-finite
+  pose (held at the last finite one). The track-loss curves are read at
+  ``flush``.
 
 Randomness: grid/decoder init draws from a CPU ``torch.Generator`` seeded
 with ``seed``; tracker, mapper and overlap pixel draws from a generator on
@@ -27,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE
-from ..config.schema import SLAMConfig
+from ..config.schema import ParallelConfig, SLAMConfig
 from ..core.pose import (
     camera_from_tensor,
     constant_speed_warm_start,
@@ -35,12 +49,17 @@ from ..core.pose import (
     to_homogeneous,
 )
 from ..core.rays import Intrinsics, draw_pixels
+from ..core.transfer import HostCopy, to_device
 from ..eval.ate import ate_rmse
 from ..grid.hierarchy import GridConfig, init_grids
 from ..io.datasets.base import Frame, FrameReader
+from ..io.prefetch import Prefetcher
 from ..models.decoders import DecoderConfig, init_decoders
 from ..models.pretrained import load_decoders_npz
 from ..render.renderer import RenderConfig
+from ..utils.checkpoint import load_checkpoint
+from ..utils.logging import MetricsLogger
+from ..utils.profiling import StepTimer
 from . import keyframes as kf_mod
 from .mapper import (
     MapOptConfig,
@@ -52,8 +71,14 @@ from .mapper import (
     make_pass_params,
     run_schedule,
 )
-from .state import MapState, add_keyframe, init_keyframe_db
-from .tracker import TrackConfig, track_frame
+from .state import (
+    MapState,
+    add_keyframe,
+    init_keyframe_db,
+    restore_keyframes,
+    snapshot_keyframes,
+)
+from .tracker import track_config, track_frame
 
 
 class NiceSLAM:
@@ -65,6 +90,7 @@ class NiceSLAM:
         reader: Optional[FrameReader] = None,
         seed: int = 0,
         device=DEFAULT_DEVICE,
+        log_path: Optional[str] = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -72,19 +98,28 @@ class NiceSLAM:
                 "NiceSLAM runs on cuda by default and no CUDA device is "
                 "available; pass device='cpu' to run on the CPU"
             )
-        if cfg.sync_method != "strict":
-            raise NotImplementedError("only sync_method='strict' is implemented")
-        if cfg.tracking.method != "gn":
-            raise NotImplementedError("only the Gauss-Newton tracker is implemented")
+        if cfg.sync_method not in ("strict", "async"):
+            raise ValueError(f"unknown sync_method {cfg.sync_method!r}")
+        if cfg.tracking.method not in ("gn", "adam"):
+            raise ValueError(f"unknown tracking.method {cfg.tracking.method!r}")
+        if cfg.parallel != ParallelConfig():
+            raise NotImplementedError(
+                "this package runs on one device: a non-default `parallel` "
+                "block waits for the multi-device slice (ROADMAP, later slice 6)"
+            )
         if reader is None:
             if cfg.dataset != "synthetic":
-                raise NotImplementedError(f"no reader for dataset {cfg.dataset!r}")
+                raise NotImplementedError(
+                    f"no reader for dataset {cfg.dataset!r}: the Co-Fusion, "
+                    "Replica, TUM and ScanNet readers are ROADMAP's later slice 5"
+                )
             from ..io.datasets.synthetic import SyntheticBoxReader
 
             reader = SyntheticBoxReader(cfg)
         self.cfg = cfg
         self.seed = seed
         self.reader = reader
+        self.sync_method = cfg.sync_method
         c = cfg.cam
         self.intr = Intrinsics(
             H=c.H - 2 * c.crop_edge,
@@ -106,11 +141,11 @@ class NiceSLAM:
             c_dim=cfg.model.c_dim,
             coarse_bound_enlarge=cfg.model.coarse_bound_enlarge,
         )
-        grids, self.bounds, bound = init_grids(
+        grids, bounds, bound = init_grids(
             np.asarray(cfg.bound, np.float32) * cfg.scale, grid_cfg,
             gen=init_gen, device=self.device,
         )
-        self.scene_bound = torch.as_tensor(bound, device=self.device)
+        self._set_bounds(bounds, torch.as_tensor(bound, device=self.device))
         dec_cfg = DecoderConfig(
             c_dim=cfg.model.c_dim, hidden=cfg.model.hidden_size, coarse=cfg.coarse
         )
@@ -142,21 +177,7 @@ class NiceSLAM:
             occupancy=cfg.occupancy,
             surface_band=cfg.rendering.surface_band,
         )
-        t = cfg.tracking
-        self.tcfg = TrackConfig(
-            pixels=t.pixels,
-            iters=t.iters,
-            use_color=t.use_color_in_tracking,
-            w_color_loss=t.w_color_loss,
-            handle_dynamic=t.handle_dynamic,
-            depth_err_gate=t.depth_err_gate,
-            gn_prior_sigma_r=t.gn_prior_sigma_r,
-            gn_prior_sigma_t=t.gn_prior_sigma_t,
-            gn_step_clip=t.gn_step_clip,
-            gn_depth_offset_sigma=t.gn_depth_offset_sigma,
-            ignore_edge_H=t.ignore_edge_H,
-            ignore_edge_W=t.ignore_edge_W,
-        )
+        self.tcfg = track_config(cfg.tracking)
         # Observed-voxel locking (mapping.lock_after): per-level event counts
         # [Z, Y, X, 1]; a voxel counted >= lock_after times gets no updates.
         self._obs_counts = (
@@ -168,33 +189,53 @@ class NiceSLAM:
             else None
         )
         self._event_frustum = None
-        self.est_c2w: List[np.ndarray] = []
+        # Poses: numpy [4, 4] in strict sync, device tensors in async sync
+        # until flush() reads them back.
+        self.est_c2w: List = []
         self.gt_c2w: List[Optional[np.ndarray]] = []
         self.track_losses: List[float] = []
-        self.events: List[dict] = []
+        self.log = MetricsLogger(log_path, verbose=cfg.verbose)
+        self.timer = StepTimer()
         self.n_imgs = len(self.reader)
+        # Test-only fault injection: called with (frame index, (grids,
+        # decoders, cams, losses)) of every mapping pass, it may corrupt
+        # them; the NaN guard must contain the fault.
+        self.fault_hook = None
+        # Async sync: the last event's (snapshot, passes, loss tails) until
+        # _verify_pending checks it, and the deferred track-loss curves.
+        self._pending_verify = None
+        self._track_loss_dev: List[torch.Tensor] = []
         # Host mirrors of the keyframe-DB bookkeeping.
         self._kf_count = 0
         self._kf_slot_frame = np.full((cfg.mapping.max_keyframes,), -1, np.int64)
-        # Overlap percentages for the next event's keyframe selection.
+        # Overlap percentages for the next event's keyframe selection
+        # (a HostCopy started at the end of the previous event).
         self._overlap_pct = None
 
     # ------------------------------------------------------------------ util
-    def _log(self, record: dict):
-        self.events.append(record)
-        if self.cfg.verbose:
-            print(f"[niceslam_torch] {record}")
+    @property
+    def events(self) -> List[dict]:
+        """Every record logged so far (``self.log.records``)."""
+        return self.log.records
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        return to_device(x, self.device, torch.float32)
+
+    def _set_bounds(self, bounds, scene_bound):
+        self.bounds = bounds
+        self.scene_bound = scene_bound
+        # Host copies for the frustum masks, read once here.
+        self._bounds_host = {k: v.cpu().numpy() for k, v in bounds.items()}
 
     # -------------------------------------------------------------- tracking
-    def track(self, frame: Frame) -> np.ndarray:
+    def track(self, frame: Frame):
         cfgt = self.cfg.tracking
         idx = len(self.est_c2w)
         if idx == 0 or cfgt.gt_camera:
             gt = frame.gt_c2w if frame.gt_c2w is not None else np.eye(4)
             c2w = np.asarray(gt, np.float32)
+            if self.sync_method == "async":
+                c2w = self._tensor(c2w)
         else:
             prev = self._tensor(self.est_c2w[-1])
             if cfgt.const_speed_assumption and idx >= 2:
@@ -206,8 +247,14 @@ class NiceSLAM:
                 st.decoders, st.grids, self.bounds, self.scene_bound, self.intr,
                 frame.color, frame.depth, init, self.tcfg, self.rcfg, gen=self.gen,
             )
-            c2w = c2w_t.cpu().numpy().astype(np.float32)
-            self.track_losses.append(float(loss_curve[-1]))
+            if self.sync_method == "async":
+                # The pose stays on the device: every consumer (warm start,
+                # window, keyframes) is a device op, so nothing waits here.
+                c2w = c2w_t
+                self._track_loss_dev.append(loss_curve)
+            else:
+                c2w = c2w_t.cpu().numpy().astype(np.float32)
+                self.track_losses.append(float(loss_curve[-1]))
         self.est_c2w.append(c2w)
         self.gt_c2w.append(
             None if frame.gt_c2w is None else np.asarray(frame.gt_c2w, np.float32)
@@ -233,11 +280,11 @@ class NiceSLAM:
                 if method == "global":
                     slots = [int(s) for s in rng.permutation(prev_slots)[:n_sel]]
                 else:
-                    # Overlap selection reads the percentages computed at the
+                    # Overlap selection reads the percentages copied at the
                     # end of the previous event; the first overlap event
                     # (none computed yet) selects globally.
                     if self._overlap_pct is not None:
-                        p = self._overlap_pct.cpu().numpy()
+                        p = self._overlap_pct.numpy()
                         cand = [s for s in prev_slots if p[s] > 0]
                     else:
                         cand = prev_slots
@@ -249,7 +296,6 @@ class NiceSLAM:
         """One mapping event: optional coarse pass + staged mapping."""
         m = self.cfg.mapping
         idx = len(self.est_c2w) - 1
-        cur_c2w = self.est_c2w[-1]
         is_last = idx == self.n_imgs - 1
         outer = 1
         if first:
@@ -261,6 +307,15 @@ class NiceSLAM:
             mode, iters, lr_factor = "normal", m.iters, m.lr_factor
             if idx < m.bootstrap_frames and m.bootstrap_iters > 0:
                 iters = m.bootstrap_iters
+        if self.sync_method == "async":
+            # Settle the previous event's guard before building on its map,
+            # then snapshot what this event may change.
+            self._verify_pending()
+            self._event_prev = self._snapshot_event()
+            self._event_passes = []
+        # Read after the guard: a rollback may have replaced this frame's
+        # pose, tracked against the faulty map.
+        cur_c2w = self.est_c2w[-1]
         self._train_decoders_now = self.decoder_train == "always" or (
             self.decoder_train == "init" and first
         )
@@ -271,7 +326,16 @@ class NiceSLAM:
                 frame, cur_c2w, iters, lr_factor, coarse=False,
                 refine=(mode == "refine"), sel_salt=outer_i,
             )
-        self.est_c2w[-1] = np.asarray(cur_c2w, np.float32)
+        if self.sync_method == "async":
+            self.est_c2w[-1] = cur_c2w
+            passes = self._event_passes
+            tails = torch.stack([torch.stack([lo[0], lo[-1]]) for *_, lo in passes])
+            self._pending_verify = (
+                self._event_prev, [p[:3] for p in passes], HostCopy(tails)
+            )
+            self._event_passes = self._event_prev = None
+        else:
+            self.est_c2w[-1] = np.asarray(cur_c2w, np.float32)
 
         if self._obs_counts is not None and self._event_frustum is not None:
             for lvl in self._obs_counts:
@@ -298,10 +362,10 @@ class NiceSLAM:
         self.state.version += 1
         if m.keyframe_selection_method == "overlap" and self._kf_count > 1:
             i, j = draw_pixels(self.gen, self.intr, 100, device=self.device)
-            self._overlap_pct = kf_mod.keyframe_overlap_percentages(
+            self._overlap_pct = HostCopy(kf_mod.keyframe_overlap_percentages(
                 self.intr, self._tensor(self.est_c2w[-1]), frame.depth,
                 frame.color, self.state.keyframes.est_c2w, i, j,
-            )
+            ))
 
     def _retrack_event_frame(self, frame: Frame):
         """One extra pose solve for the event frame against the fresh map."""
@@ -311,7 +375,10 @@ class NiceSLAM:
             frame.color, frame.depth, self._tensor(self.est_c2w[-1]),
             self.tcfg, self.rcfg, gen=self.gen,
         )
-        self.est_c2w[-1] = c2w_t.cpu().numpy().astype(np.float32)
+        self.est_c2w[-1] = (
+            c2w_t if self.sync_method == "async"
+            else c2w_t.cpu().numpy().astype(np.float32)
+        )
 
     def _is_keyframe(self, idx: int) -> bool:
         return bool(np.any(self._kf_slot_frame == idx))
@@ -363,8 +430,9 @@ class NiceSLAM:
         # slots invalid; the current frame sits right after the keyframes.
         F = wsize
         wcur = len(slots)
-        sel = torch.zeros((F,), dtype=torch.long, device=self.device)
-        sel[:wcur] = torch.as_tensor(slots, dtype=torch.long)
+        sel = np.zeros((F,), np.int64)
+        sel[:wcur] = slots
+        sel = to_device(sel, self.device)
         colors = db.colors[sel]
         depths = db.depths[sel]
         poses44 = db.est_c2w[sel]
@@ -399,8 +467,8 @@ class NiceSLAM:
         grids = self.state.grids
         if mcfg.frustum_feature_selection:
             masks = kf_mod.frustum_masks_for_levels(
-                poses44, torch.as_tensor(valid, device=self.device), depths,
-                self.intr, self.bounds, grids,
+                poses44, to_device(valid, self.device), depths,
+                self.intr, self._bounds_host, grids,
             )
         else:
             masks = {lvl: torch.ones(g.shape[:3] + (1,), device=self.device)
@@ -427,31 +495,111 @@ class NiceSLAM:
                 gen=self.gen,
             )
             parts.append(lo[:real])
-        losses_np = torch.cat(parts).cpu().numpy()
-        # NaN guard: a diverged pass is never published.
-        if not np.isfinite(losses_np[-1]):
-            self._log({
-                "event": "map_rejected", "frame": idx, "coarse": coarse,
-                "loss_last": float(losses_np[-1]),
-            })
-            return np.asarray(cur_c2w)
+        losses = torch.cat(parts)
         params = pp.params
-        self.state.grids = {k: v.detach() for k, v in params["grids"].items()}
-        self.state.decoders = _detach_tree(params["decoders"])
-        self._log({
-            "event": "map", "frame": idx, "coarse": coarse,
-            "stages": [p[0] for p in plan],
-            "loss_first": float(losses_np[0]), "loss_last": float(losses_np[-1]),
-        })
+        new_grids, new_decoders, new_cams = params["grids"], params["decoders"], params["cams"]
+        if self.fault_hook is not None:
+            new_grids, new_decoders, new_cams, losses = self.fault_hook(
+                idx, (new_grids, new_decoders, new_cams, losses)
+            )
+        stages = [p[0] for p in plan]
+        if self.sync_method == "async":
+            # Published at once; checked at the next event (_verify_pending).
+            self._event_passes.append((idx, coarse, stages, losses))
+        else:
+            losses_np = losses.cpu().numpy()
+            # NaN guard: a diverged pass is never published.
+            if not np.isfinite(losses_np[-1]):
+                self.log.log({
+                    "event": "map_rejected", "frame": idx, "coarse": coarse,
+                    "loss_last": float(losses_np[-1]),
+                })
+                return cur_c2w
+            self.log.log({
+                "event": "map", "frame": idx, "coarse": coarse, "stages": stages,
+                "loss_first": float(losses_np[0]), "loss_last": float(losses_np[-1]),
+            })
+        self.state.grids = {k: v.detach() for k, v in new_grids.items()}
+        self.state.decoders = _detach_tree(new_decoders)
         if ba:
             # Write the optimized keyframe poses back.
-            new_poses = to_homogeneous(camera_from_tensor(params["cams"].detach()))
+            new_poses = to_homogeneous(camera_from_tensor(new_cams.detach()))
             for w, s in enumerate(slots):
                 if not fixed[w]:
                     db.est_c2w[s] = new_poses[w]
             if not fixed[wcur]:
+                if self.sync_method == "async":
+                    return new_poses[wcur]
                 return new_poses[wcur].cpu().numpy()
-        return np.asarray(cur_c2w)
+        return cur_c2w
+
+    # ------------------------------------------------------------ async guard
+    def _snapshot_event(self):
+        """What a mapping event may change, taken before it starts. Published
+        grids and decoders are replaced, never written, so a reference keeps
+        them; the keyframe DB is written in place, so its poses, indices and
+        the slot an admission would fill are copied."""
+        return (
+            self.state.grids,
+            self.state.decoders,
+            snapshot_keyframes(self.state.keyframes),
+            self._kf_count,
+            self._kf_slot_frame.copy(),
+            len(self.est_c2w) - 1,
+            self.est_c2w[-1],
+            None if self._obs_counts is None else dict(self._obs_counts),
+        )
+
+    def _verify_pending(self):
+        """Resolve the deferred NaN guard of the last async mapping event:
+        log its passes, or, if any pass diverged, roll the whole event back
+        (passes within one event build on each other, so a partial
+        acceptance would keep poisoned state)."""
+        if self._pending_verify is None:
+            return
+        prev, passes, tails = self._pending_verify
+        self._pending_verify = None
+        tails = tails.numpy()  # [passes, (first, last)]
+        if np.isfinite(tails[:, 1]).all():
+            for (idx, coarse, stages), (first, last) in zip(passes, tails):
+                self.log.log({
+                    "event": "map", "frame": idx, "coarse": coarse, "stages": stages,
+                    "loss_first": float(first), "loss_last": float(last),
+                })
+            return
+        grids, decoders, kf_snap, kf_count, kf_slots, tidx, tpose, obs = prev
+        self.state.grids, self.state.decoders = grids, decoders
+        restore_keyframes(self.state.keyframes, kf_snap)
+        self._kf_count, self._kf_slot_frame, self._obs_counts = kf_count, kf_slots, obs
+        # The event frame's pose as it was (BA may have poisoned it); a later
+        # pose tracked against the faulty map is held at the last finite one.
+        self.est_c2w[tidx] = last = tpose
+        for k in range(tidx + 1, len(self.est_c2w)):
+            last = self.est_c2w[k] = self._finite_or(self.est_c2w[k], last)
+        self.log.log({
+            "event": "map_rejected", "frame": passes[0][0],
+            "loss_last": [float(t) for t in tails[:, 1]],
+        })
+
+    def _finite_or(self, pose, fallback):
+        """``pose`` if all its entries are finite, else ``fallback``; on the
+        device for a tensor (no read back)."""
+        if isinstance(pose, torch.Tensor):
+            return torch.where(torch.isfinite(pose).all(), pose, self._tensor(fallback))
+        return pose if np.isfinite(pose).all() else fallback
+
+    def flush(self):
+        """Settle everything deferred: the pending guard, the track-loss
+        curves, and the poses (numpy from here on)."""
+        self._verify_pending()
+        if self._track_loss_dev:
+            tails = torch.stack([c[-1] for c in self._track_loss_dev]).cpu().numpy()
+            self.track_losses.extend(float(t) for t in tails)
+            self._track_loss_dev = []
+        self.est_c2w = [
+            p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p, np.float32)
+            for p in self.est_c2w
+        ]
 
     # ------------------------------------------------------------------ run
     def step(self, frame: Frame):
@@ -459,14 +607,16 @@ class NiceSLAM:
         idx = len(self.est_c2w)
         t0 = time.perf_counter()
         first = idx == 0
-        # One host-to-device copy per frame, shared by track and map.
+        # One host-to-device copy per frame, shared by track and map (none
+        # for a frame the prefetcher already put on the device).
         frame = Frame(
             idx=frame.idx,
             color=self._tensor(frame.color),
             depth=self._tensor(frame.depth),
             gt_c2w=frame.gt_c2w,
         )
-        self.track(frame)
+        with self.timer.section("track"):
+            self.track(frame)
         t_track = time.perf_counter()
         m = self.cfg.mapping
         if (
@@ -475,26 +625,59 @@ class NiceSLAM:
             or idx % m.every_frame == 0
             or idx == self.n_imgs - 1
         ):
-            self.map_frame(frame, first=first)
+            with self.timer.section("map"):
+                self.map_frame(frame, first=first)
         t_end = time.perf_counter()
-        # Host clocks; strict mode reads the pose and the mapping losses
-        # back before each section ends, so they cover the device work too.
-        self._log({
+        self.log.frame_done()
+        # Host clocks: strict sync reads the pose and the mapping losses back
+        # before each section ends, so they cover the device work; async
+        # sync covers what the host spent queueing it.
+        self.log.log({
             "event": "frame", "frame": idx,
             "dt": round(t_end - t0, 4),
             "dt_track": round(t_track - t0, 4),
             "dt_map": round(t_end - t_track, 4),
-            "track_loss": self.track_losses[-1] if idx > 0 and self.track_losses else None,
+            "fps_avg": round(self.log.fps, 3),
+            "track_loss": (
+                self.track_losses[-1]
+                if idx > 0 and self.track_losses and self.sync_method != "async"
+                else None
+            ),
         })
 
     def run(self, n_frames: Optional[int] = None):
         n = len(self.reader) if n_frames is None else min(n_frames, len(self.reader))
         self.n_imgs = n
-        for k in range(n):
-            self.step(self.reader[k])
+        pf = Prefetcher(self.reader, device=self.device, end=n)
+        try:
+            for frame in pf:
+                self.step(frame)
+        finally:
+            pf.close()
         return self.result()
 
+    def restore(self, ckpt_path: str) -> int:
+        """Resume from a checkpoint (``utils/checkpoint.py``): the map, the
+        keyframe DB, the bounds and the trajectory; returns the next frame
+        index. The keyframe DB's host mirrors are rebuilt from the DB."""
+        payload = load_checkpoint(ckpt_path, self.device)
+        self.state = payload["state"]
+        if payload["bounds"] is not None:
+            self._set_bounds(
+                payload["bounds"],
+                self.scene_bound if payload["scene_bound"] is None
+                else payload["scene_bound"],
+            )
+        self.est_c2w = payload["est_c2w"]
+        self.gt_c2w = payload["gt_c2w"]
+        self._kf_count = int(self.state.keyframes.count)
+        self._kf_slot_frame = self.state.keyframes.frame_idx.cpu().numpy().astype(np.int64)
+        self._pending_verify = None
+        self._track_loss_dev = []
+        return payload["frame_idx"] + 1
+
     def result(self):
+        self.flush()
         out = {"est_c2w": self.est_c2w, "gt_c2w": self.gt_c2w}
         gts = [g for g in self.gt_c2w if g is not None]
         if len(gts) == len(self.est_c2w) and len(gts) > 1:

@@ -1,14 +1,23 @@
-"""Camera tracker: damped Gauss-Newton / IRLS pose solve against the map.
+"""Camera tracker: the pose solve against the map, by one of two methods.
 
-Per iteration: a FRESH pixel batch; residuals are metric depth + color
-errors at the current twist ``xi`` (a local se(3) perturbation of the warm
-start); the Jacobian comes from ``torch.func.jacfwd`` of the whole render
-(6 tangents, vmapped, through the sampler's ``jvp``/``vmap`` rules); IRLS
-Huber weights on the uncertainty-normalized errors; the 10 x median
-dynamic-pixel rule and the absolute depth gate with its 80 %-masked
-fallback; a motion-model prior, relative Levenberg-Marquardt damping, an
-optional scalar depth-offset nuisance column, and a per-iteration step
-clip. The solve returns the FINAL iterate.
+``method="gn"`` (the default), damped Gauss-Newton / IRLS. Per iteration: a
+FRESH pixel batch; residuals are metric depth + color errors at the current
+twist ``xi`` (a local se(3) perturbation of the warm start); the Jacobian
+comes from ``torch.func.jacfwd`` of the whole render (6 tangents, vmapped,
+through the sampler's ``jvp``/``vmap`` rules); IRLS Huber weights on the
+uncertainty-normalized errors; the 10 x median dynamic-pixel rule and the
+absolute depth gate with its 80 %-masked fallback; a motion-model prior,
+relative Levenberg-Marquardt damping, an optional scalar depth-offset
+nuisance column, and a per-iteration step clip. The solve returns the FINAL
+iterate.
+
+``method="adam"``, the reference's first-order loop: per iteration a fresh
+pixel batch, :func:`tracking_loss` and its gradient with respect to the
+7-vector camera tensor (reverse mode: on the fused route K2 runs with no
+grid gradient), and ``optax.scale_by_adam``'s step (the mapper's
+hand-written one) scaled by ``lr``, or with ``separate_LR`` by ``0.2 lr``
+on the quaternion and ``lr`` on the translation. It returns the BEST iterate:
+the post-step tensor of the iteration whose pre-step loss was the lowest.
 
 Pixel draws are injectable (``pixels``) so a test can replay the JAX
 reference's draws; by default they come from a ``torch.Generator``.
@@ -19,18 +28,22 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.pose import se3_exp
-from ..core.rays import Intrinsics, draw_pixels, pixel_dirs
+from ..core.pose import camera_from_tensor, se3_exp, tensor_from_camera, to_homogeneous
+from ..core.rays import Intrinsics, draw_pixels, pixel_dirs, sample_rays
 from ..render.renderer import RenderConfig, render_rays
+from .mapper import adam_direction, adam_moments_
 
 
 class TrackConfig(NamedTuple):
     pixels: int = 200
     iters: int = 10
+    lr: float = 1e-3
+    separate_LR: bool = False
     use_color: bool = True
     w_color_loss: float = 0.5
     handle_dynamic: bool = True
     depth_err_gate: float = 0.3
+    method: str = "gn"
     gn_lambda: float = 1e-2
     gn_step_clip: float = 0.02
     gn_color_sigma: float = 0.2
@@ -39,6 +52,27 @@ class TrackConfig(NamedTuple):
     gn_depth_offset_sigma: float = 0.0
     ignore_edge_H: int = 20
     ignore_edge_W: int = 20
+
+
+def track_config(t) -> TrackConfig:
+    """The tracker's knobs from a ``TrackingConfig`` (``cfg.tracking``)."""
+    return TrackConfig(
+        pixels=t.pixels,
+        iters=t.iters,
+        lr=t.lr,
+        separate_LR=t.seperate_LR,
+        use_color=t.use_color_in_tracking,
+        w_color_loss=t.w_color_loss,
+        handle_dynamic=t.handle_dynamic,
+        depth_err_gate=t.depth_err_gate,
+        method=t.method,
+        gn_prior_sigma_r=t.gn_prior_sigma_r,
+        gn_prior_sigma_t=t.gn_prior_sigma_t,
+        gn_step_clip=t.gn_step_clip,
+        gn_depth_offset_sigma=t.gn_depth_offset_sigma,
+        ignore_edge_H=t.ignore_edge_H,
+        ignore_edge_W=t.ignore_edge_W,
+    )
 
 
 def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -142,7 +176,9 @@ def gn_step(
         + 1e-6 * torch.eye(k, device=dev)
     )
     g = g + prior @ x_a
-    delta = -torch.linalg.solve(A, g)[:6]
+    # No error check: on the card it would read the solver's status back,
+    # which waits for the stream every iteration.
+    delta = -torch.linalg.solve_ex(A, g, check_errors=False)[0][:6]
     nrm = torch.linalg.norm(delta)
     delta = delta * torch.clamp(cfg.gn_step_clip / (nrm + 1e-12), max=1.0)
 
@@ -150,6 +186,82 @@ def gn_step(
     if cfg.use_color:
         loss = loss + cfg.w_color_loss * torch.sum(mask[:, None] * huber(uc))
     return xi + delta, loss
+
+
+def tracking_loss(
+    params, grids, bounds, scene_bound, intr: Intrinsics,
+    cam_tensor: torch.Tensor, color: torch.Tensor, depth: torch.Tensor,
+    i: torch.Tensor, j: torch.Tensor, cfg: TrackConfig, rcfg: RenderConfig,
+) -> torch.Tensor:
+    """The Adam tracker's loss at camera tensor ``cam_tensor [7]`` on pixels
+    ``(i, j)``: uncertainty-weighted depth L1 plus ``w_color_loss`` times the
+    color L1 over the pixels that pass the 10 x median rule and the absolute
+    depth gate (dropped for the batch when it would keep < 20 % of them). The
+    variance and both masks carry no gradient."""
+    c2w = to_homogeneous(camera_from_tensor(cam_tensor))
+    batch = sample_rays(intr, c2w, depth, color, i, j)
+    out = render_rays(
+        params, grids, bounds, scene_bound, batch.rays_o, batch.rays_d,
+        batch.gt_depth, "color", rcfg,
+    )
+    abs_err = torch.abs(batch.gt_depth - out.depth)
+    err = abs_err / torch.sqrt(out.depth_var.detach() + 1e-10)
+    mask = batch.gt_depth > 0
+    if cfg.handle_dynamic:
+        e = err.detach()
+        # jnp.median averages the two middle values; torch.median does not.
+        mask = mask & (e < 10.0 * torch.quantile(e, 0.5))
+    if cfg.depth_err_gate > 0:
+        gate = abs_err.detach() < cfg.depth_err_gate
+        keep_frac = torch.sum((mask & gate).to(torch.float32)) / torch.clamp(
+            torch.sum(mask.to(torch.float32)), min=1.0
+        )
+        mask = mask & (gate | (keep_frac < 0.2))
+    w = mask.to(err.dtype)
+    loss = torch.sum(err * w)
+    if cfg.use_color:
+        closs = torch.sum(torch.abs(batch.gt_color - out.rgb) * w[:, None])
+        loss = loss + cfg.w_color_loss * closs
+    return loss
+
+
+def adam_lr(cfg: TrackConfig, device) -> torch.Tensor:
+    """The Adam step's learning rate per camera-tensor entry, float32 ``[7]``:
+    ``lr``, or with ``separate_LR`` ``0.2 lr`` on the quaternion (the
+    reference's two parameter groups). Filled on ``device``."""
+    q = 0.2 if cfg.separate_LR else 1.0
+    return torch.cat([
+        torch.full((4,), q, dtype=torch.float32, device=device),
+        torch.full((3,), 1.0, dtype=torch.float32, device=device),
+    ]) * cfg.lr
+
+
+def _track_frame_adam(
+    params, grids, bounds, scene_bound, intr, color, depth, init, cfg, rcfg, pixels,
+):
+    cam = tensor_from_camera(init)
+    mu, nu = torch.zeros_like(cam), torch.zeros_like(cam)
+    lr = adam_lr(cfg, cam.device)
+    best_cam = cam
+    best_loss = torch.full((), float("inf"), device=cam.device)
+    losses = []
+    for it, (i, j) in enumerate(pixels):
+        c = cam.detach().requires_grad_(True)
+        loss = tracking_loss(
+            params, grids, bounds, scene_bound, intr, c, color, depth, i, j, cfg, rcfg,
+        )
+        (g,) = torch.autograd.grad(loss, c)
+        loss = loss.detach()
+        adam_moments_(mu, nu, g)
+        new_cam = cam - lr * adam_direction(mu, nu, it + 1)
+        # The reference keeps the post-step tensor when the pre-step loss
+        # improves on the best so far.
+        better = loss < best_loss
+        best_cam = torch.where(better, new_cam, best_cam)
+        best_loss = torch.where(better, loss, best_loss)
+        cam = new_cam
+        losses.append(loss)
+    return to_homogeneous(camera_from_tensor(best_cam)), torch.stack(losses)
 
 
 def track_frame(
@@ -166,8 +278,8 @@ def track_frame(
     gen: Optional[torch.Generator] = None,
     pixels: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Solve the frame's pose from ``init_c2w``; returns ``(c2w [4, 4],
-    per-iteration losses [iters])``.
+    """Solve the frame's pose from ``init_c2w`` by ``cfg.method``; returns
+    ``(c2w [4, 4], per-iteration losses [iters])``.
 
     ``pixels`` (one ``(i, j)`` pair per iteration) overrides the draws from
     ``gen``.
@@ -175,6 +287,13 @@ def track_frame(
     init = init_c2w.to(torch.float32)
     if pixels is None:
         pixels = draw_track_pixels(gen, intr, cfg, init.device)
+    if cfg.method == "adam":
+        return _track_frame_adam(
+            params, grids, bounds, scene_bound, intr, color, depth, init, cfg,
+            rcfg, pixels,
+        )
+    if cfg.method != "gn":
+        raise ValueError(f"unknown tracking method {cfg.method!r}; expected 'gn' or 'adam'")
     xi = torch.zeros((6,), dtype=torch.float32, device=init.device)
     losses = []
     for i, j in pixels:

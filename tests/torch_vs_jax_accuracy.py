@@ -2,13 +2,17 @@
 world: the accuracy tripwire's configuration and 12-frame trajectory, run by
 both packages for the same seeds, printing each run's ATE and raw per-frame
 position error. The packages draw different pixels, so the comparison is of
-distributions, not of trajectories.
+distributions, not of trajectories. ``--method`` picks the tracker (``gn``,
+the default, or ``adam``) and ``--sync`` the sync method (``strict`` or
+``async``), for both packages alike.
 
-    JAX_PLATFORMS=cpu python tests/torch_vs_jax_accuracy.py [frames] [seeds]
+    JAX_PLATFORMS=cpu python tests/torch_vs_jax_accuracy.py [frames] [seeds] \
+        [--method gn|adam] [--sync strict|async]
 
 Several CPU-minutes (both packages, 12 frames, 4 seeds by default); not part
 of the test suite.
 """
+import argparse
 import dataclasses
 import os
 import sys
@@ -22,10 +26,12 @@ sys.path[:0] = [_ROOT, os.path.join(_ROOT, "tests")]
 NPZ = os.path.join(_ROOT, "models", "pretrained_decoders.npz")
 
 
-def _tripwire(cfg):
+def _tripwire(cfg, method: str, sync: str):
     return dataclasses.replace(
         cfg,
+        sync_method=sync,
         pretrained_middle_fine=NPZ,
+        tracking=dataclasses.replace(cfg.tracking, method=method),
         mapping=dataclasses.replace(cfg.mapping, bootstrap_frames=4, fs_weight=1.0),
     )
 
@@ -40,7 +46,7 @@ def _report(name, seed, res, t0):
     return 100 * res["ate_rmse"]
 
 
-def main(frames: int = 12, seeds: int = 4):
+def main(frames: int = 12, seeds: int = 4, method: str = "gn", sync: str = "strict"):
     import jax
     import torch
 
@@ -56,18 +62,25 @@ def main(frames: int = 12, seeds: int = 4):
     ates = {"jax": [], "torch": []}
     for seed in range(seeds):
         t0 = time.time()
-        cfg = _tripwire(jax_tiny())
+        cfg = _tripwire(jax_tiny(), method, sync)
         reader = JaxReader(cfg, n_frames=12, trajectory_kwargs=dict(arc_fraction=0.1))
         res = JaxSLAM(cfg, reader=reader, seed=seed).run(frames)
         ates["jax"].append(_report("jax", seed, res, t0))
         t0 = time.time()
-        cfg = _tripwire(tiny_config())
+        cfg = _tripwire(tiny_config(), method, sync)
         reader = SyntheticBoxReader(cfg, n_frames=12, trajectory_kwargs=dict(arc_fraction=0.1))
         res = NiceSLAM(cfg, reader=reader, seed=seed, device="cpu").run(frames)
         ates["torch"].append(_report("torch", seed, res, t0))
     for name, a in ates.items():
-        print(f"{name}: ATE per seed {[round(x, 3) for x in a]}, mean {np.mean(a):.3f} cm")
+        print(f"{name} ({method}, {sync}): ATE per seed {[round(x, 3) for x in a]}, "
+              f"mean {np.mean(a):.3f} cm")
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:3]))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("frames", type=int, nargs="?", default=12)
+    ap.add_argument("seeds", type=int, nargs="?", default=4)
+    ap.add_argument("--method", choices=("gn", "adam"), default="gn")
+    ap.add_argument("--sync", choices=("strict", "async"), default="strict")
+    a = ap.parse_args()
+    main(a.frames, a.seeds, a.method, a.sync)
