@@ -64,6 +64,20 @@ prints no result):
    frames, a checkpoint at frame 4, trajectory, mesh at resolution 64);
    a restore of the checkpoint equal to the state saved bit for bit; then
    ``--resume`` from it to frame 8.
+10. real data: the synthetic scene written in the Co-Fusion layout at
+   640x480 (PNG colour through ``io/png.py``, ZIP EXR depth, the
+   ground-truth trajectory), read back (colour exact, depth bit for bit,
+   poses within 1e-5) with the PNG and EXR decode times; upstream-format
+   ``coarse.pt`` / ``middle_fine.pt`` written from the shipped ``.npz``,
+   whose import must equal it bit for bit; then ``python -m
+   niceslam_tpu_torch configs/cofusion.yaml`` in a subprocess on that
+   layout with the ``.pt`` decoders (async, Adam tracking, BA, 6 frames,
+   render panels every 2 frames, a checkpoint of the last frame): no lost
+   track, the panels ``480 x 3200 x 3``, K1 and K2 launched and K3-K5 not;
+   a second, 2-frame run with ``--profile-dir`` whose trace must hold the
+   ``track`` and ``map`` ranges and K1/K2, with the card's busy share per
+   frame; ``render_image`` of the final map timed on the card and, on a
+   32-row band, held against the CPU.
 
 ``--profile`` adds a phase after the fused main path: two more every_frame
 groups, the first timed, the second under ``torch.profiler``, for the
@@ -1440,6 +1454,301 @@ def phase_profile(slam, reader, group: int):
         log(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:100]}")
 
 
+# ---------------------------------------------------------------- phase 10
+# ``python -m niceslam_tpu_torch`` in a subprocess, reporting every kernel's
+# launch count on standard error once the command line's own ``main`` ends.
+CLI_WITH_LAUNCHES = (
+    "import json, sys\n"
+    "from niceslam_tpu_torch.__main__ import main\n"
+    "from niceslam_tpu_torch.ops import packed_kernels as pk, trilerp_kernels as tk\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('launches ' + json.dumps({**tk.LAUNCHES, **pk.LAUNCHES}), file=sys.stderr)\n"
+    "sys.exit(rc)\n"
+)
+# The kernels' names in a profiler trace (csrc/trilerp.cu: K1, and K2's two
+# kernels).
+K1_K2_NAMES = ("trilerp_fwd_kernel", "trilerp_bwd_points_kernel", "trilerp_bwd_fill_kernel")
+
+
+def write_cofusion_layout(root: str, n_frames: int, cfg):
+    """The synthetic scene in the Co-Fusion layout at the configuration's
+    640x480: ``colour/Color0NNN.png`` (io/png.py), ``depth_noise/
+    Depth0NNN.exr`` (io/exr_write.py, ZIP) and ``trajectories/gt-cam-0.txt``
+    (OpenCV-style quaternions), the first frames of the synthetic reader's
+    default 60-frame trajectory. Returns the colour (uint8), depth and
+    OpenGL poses written."""
+    from scipy.spatial.transform import Rotation
+
+    from niceslam_tpu_torch.core.rays import Intrinsics
+    from niceslam_tpu_torch.io import exr_write, png
+    from niceslam_tpu_torch.io.datasets.base import opencv_to_opengl
+    from niceslam_tpu_torch.io.datasets.synthetic import circular_trajectory, render_box_scene
+
+    c = cfg.cam
+    intr = Intrinsics(H=c.H, W=c.W, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy)
+    box = np.asarray(cfg.bound, np.float32) * 0.9
+    poses = circular_trajectory(60)[:n_frames]
+    for d in ("colour", "depth_noise", "trajectories"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    colors, depths = [], []
+    with open(os.path.join(root, "trajectories", "gt-cam-0.txt"), "w") as traj:
+        for k, c2w in enumerate(poses):
+            color, depth = render_box_scene(intr, c2w, box)
+            u8 = (np.clip(color, 0, 1) * 255).astype(np.uint8)
+            png.write_png(os.path.join(root, "colour", f"Color0{k:03d}.png"), u8)
+            exr_write.write_exr(os.path.join(root, "depth_noise", f"Depth0{k:03d}.exr"), depth)
+            cv = opencv_to_opengl(c2w)
+            q, t = Rotation.from_matrix(cv[:3, :3]).as_quat(), cv[:3, 3]
+            traj.write(f"{k} " + " ".join(f"{v:.9f}" for v in (*t, *q)) + "\n")
+            colors.append(u8)
+            depths.append(depth)
+    return colors, depths, poses
+
+
+def check_layout_reads_back(root: str, cfg, colors, depths, poses):
+    """The Co-Fusion reader gives back what was written: colour as
+    ``uint8 / 255``, depth bit for bit, poses within 1e-5; PNG and EXR
+    decode times on this host."""
+    from niceslam_tpu_torch.io import native_loader, png
+    from niceslam_tpu_torch.io.datasets.base import get_dataset
+    from niceslam_tpu_torch.io.datasets.cofusion import CoFusionReader
+
+    reader = get_dataset(dataclasses.replace(cfg, data_input_folder=root))
+    if not (isinstance(reader, CoFusionReader) and len(reader) == len(poses)):
+        raise AssertionError(f"real data: reader {type(reader).__name__} of {len(reader)} frames")
+    t0 = time.perf_counter()
+    png.read_png_rgb(reader.color_paths[0])
+    native_loader.read_exr(reader.depth_paths[0])
+    log(f"real data: first decode with the host libraries' build "
+        f"{time.perf_counter() - t0:.2f} s")
+    for k in range(len(reader)):
+        f = reader[k]
+        if not np.array_equal(f.color, (colors[k] / 255.0).astype(np.float32)):
+            raise AssertionError(f"real data: frame {k} colour differs from what was written")
+        if not np.array_equal(f.depth, depths[k]):
+            raise AssertionError(f"real data: frame {k} depth differs from what was written")
+        err = float(np.abs(f.gt_c2w - poses[k]).max())
+        if not err <= 1e-5:
+            raise AssertionError(f"real data: frame {k} pose off by {err:.2e} (> 1e-5)")
+    size = f"{cfg.cam.W}x{cfg.cam.H}"
+    png_ms = [1e3 * t for t in timed_each(png.read_png_rgb, reader.color_paths)]
+    exr_ms = [1e3 * t for t in timed_each(native_loader.read_exr, reader.depth_paths)]
+    log(f"real data: {len(reader)} frames read back: colour exact, depth bit for bit, poses "
+        f"within 1e-5; decode ms per frame on this host: PNG ({size} RGB, io/png.py) "
+        f"median {statistics.median(png_ms):.2f} {[round(t, 2) for t in png_ms]}, EXR "
+        f"({size} float ZIP, native/exr.cpp) median {statistics.median(exr_ms):.2f} "
+        f"{[round(t, 2) for t in exr_ms]}")
+
+
+def timed_each(fn, args):
+    out = []
+    for a in args:
+        t0 = time.perf_counter()
+        fn(a)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def write_pt_decoders(tmp: str):
+    """``coarse.pt`` and ``middle_fine.pt`` under upstream names from the
+    shipped ``.npz``; their import must equal the ``.npz`` load bit for bit."""
+    from niceslam_tpu_torch.models.decoders import DecoderConfig, init_decoders
+    from niceslam_tpu_torch.models.pretrained import (
+        _flatten_with_keys, load_decoders_npz, load_pretrained_decoders, upstream_state_dict,
+    )
+
+    npz = os.path.join(ROOT, "models", "pretrained_decoders.npz")
+    ref = load_decoders_npz(npz, init_decoders(DecoderConfig(), device="cuda"))
+    sd = upstream_state_dict(ref)
+    paths = (os.path.join(tmp, "coarse.pt"), os.path.join(tmp, "middle_fine.pt"))
+    torch.save({k: v for k, v in sd.items() if k.startswith("coarse_")}, paths[0])
+    torch.save({k: v for k, v in sd.items() if not k.startswith("coarse_")}, paths[1])
+    got = load_pretrained_decoders(init_decoders(DecoderConfig(), device="cuda"), *paths)
+    for lvl in ("coarse", "middle", "fine"):
+        want = dict(_flatten_with_keys(ref[lvl]))
+        have = dict(_flatten_with_keys(got[lvl]))
+        if want.keys() != have.keys() or not all(
+                have[k].is_cuda and torch.equal(have[k], want[k]) for k in want):
+            raise AssertionError(f"real data: the .pt import of {lvl} differs from the .npz")
+    log(f"real data: {len(sd)} upstream tensors in coarse.pt and middle_fine.pt; their import "
+        f"equals the .npz load of coarse, middle and fine bit for bit")
+    return paths
+
+
+def run_cli(argv, tag: str, timeout: int):
+    """The command line in a subprocess on the card; returns its standard
+    output lines and the kernels' launch counts."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_WITH_LAUNCHES, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli [{tag}]: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    launches = json.loads(next(line for line in proc.stderr.splitlines()[::-1]
+                               if line.startswith("launches "))[len("launches "):])
+    lines = proc.stdout.strip().splitlines()
+    log(f"cli [{tag}]: rc 0 in {dt:.1f} s (process included); last line {lines[-1]}; "
+        f"launches {launches}")
+    check_route_launches(f"cli [{tag}]", "fused", launches)
+    return lines, launches, dt
+
+
+def busy_shares(trace_path: str):
+    """Per frame of a profiled run: (wall ms, kernel ms) from the trace. A
+    frame runs from the start of its ``track`` range to the start of the
+    next one (the last to the end of its last kernel or range); its kernel
+    time is that of the kernels inside that window."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") in ("track", "map")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    missing = [n for n in K1_K2_NAMES if not any(n in k for k in names)]
+    have = {e["name"] for e in ranges}
+    if missing or have != {"track", "map"}:
+        raise AssertionError(f"profile: the trace lacks {missing} or the track/map ranges "
+                             f"(has {sorted(have)})")
+    starts = sorted(float(e["ts"]) for e in ranges if e["name"] == "track")
+    end = max(float(e["ts"]) + float(e["dur"]) for e in ranges + kernels)
+    out = []
+    for a, b in zip(starts, starts[1:] + [end]):
+        busy = sum(max(0.0, min(b, float(e["ts"]) + float(e["dur"])) - max(a, float(e["ts"])))
+                   for e in kernels)
+        out.append(((b - a) / 1e3, busy / 1e3))
+    return out, len(kernels)
+
+
+def phase_real_data(frames: int = 6):
+    """The real-data run path: the Co-Fusion layout written to disk at
+    640x480, upstream ``.pt`` decoders, the command line on
+    ``configs/cofusion.yaml`` (async, Adam tracking, BA) with render panels,
+    a short profiled run, and ``render_image`` of the final map on the card
+    against the CPU."""
+    from niceslam_tpu_torch.config.schema import load_config
+    from niceslam_tpu_torch.io import png
+    from niceslam_tpu_torch.models.decoders import tree_map
+    from niceslam_tpu_torch.render.renderer import render_image
+    from niceslam_tpu_torch.slam.system import NiceSLAM
+
+    config = os.path.join(ROOT, "configs", "cofusion.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "room")
+        overrides = {"data.input_folder": data, "sync_method": "async",
+                     "tracking.method": "adam"}
+        cfg = load_config(config, overrides=dict(overrides))
+        t0 = time.perf_counter()
+        colors, depths, poses = write_cofusion_layout(data, frames, cfg)
+        log(f"real data: wrote {frames} frames of the Co-Fusion layout at "
+            f"{cfg.cam.W}x{cfg.cam.H} in {time.perf_counter() - t0:.2f} s")
+        check_layout_reads_back(data, cfg, colors, depths, poses)
+        pt = write_pt_decoders(tmp)
+        overrides.update(pretrained_coarse=pt[0], pretrained_middle_fine=pt[1])
+
+        def argv(extra, **more):
+            out = [config, *extra]
+            for k, v in {**overrides, **more}.items():
+                out += ["--set", f"{k}={v}"]
+            return out
+
+        # The run: every frame's panel from frame 2 on (vis_freq 2,
+        # no_vis_on_first_frame), the last frame's map checkpointed.
+        vis, ck = os.path.join(tmp, "vis"), os.path.join(tmp, "ck")
+        lines, _, dt = run_cli(argv(
+            ["--frames", str(frames), "--log", os.path.join(tmp, "run.jsonl"),
+             "--trajectory", os.path.join(tmp, "traj.npy"), "--vis-dir", vis,
+             "--ckpt-dir", ck], **{"mapping.vis_freq": 2, "mapping.ckpt_freq": frames - 1}),
+            "cofusion layout", timeout=400)
+        last = json.loads(lines[-1])
+        traj = np.load(os.path.join(tmp, "traj.npy"))
+        if not (set(last) == {"frames", "fps_avg", "ate_rmse_cm"} and last["frames"] == frames
+                and traj.shape == (frames, 4, 4) and np.isfinite(traj).all()):
+            raise AssertionError(f"cli [cofusion layout]: last line {last}, trajectory "
+                                 f"{traj.shape}")
+        err_cm = 100.0 * np.linalg.norm(traj[:, :3, 3] - np.stack(poses)[:, :3, 3], axis=1)
+        lost = lost_track(last["ate_rmse_cm"], err_cm)
+        log(f"cli [cofusion layout]: position error per frame (cm) "
+            f"{[round(float(e), 2) for e in err_cm]}, ATE {last['ate_rmse_cm']} cm")
+        if lost:
+            raise AssertionError(f"cli [cofusion layout]: the track is lost: {lost}")
+        want = [f"frame_{k:06d}.png" for k in range(2, frames, 2)]
+        if sorted(os.listdir(vis)) != want:
+            raise AssertionError(f"cli [cofusion layout]: panels {sorted(os.listdir(vis))}, "
+                                 f"want {want}")
+        for name in want:
+            panel = png.read_png_rgb(os.path.join(vis, name))
+            if panel.shape != (cfg.cam.H, 5 * cfg.cam.W, 3) or panel.min() == panel.max():
+                raise AssertionError(f"cli [cofusion layout]: panel {name} {panel.shape}, "
+                                     f"values {panel.min()}-{panel.max()}")
+        log(f"cli [cofusion layout]: {len(want)} panels {want}, each {cfg.cam.H} x "
+            f"{5 * cfg.cam.W} x 3 and not of one value")
+
+        # A short profiled run (2 frames, iters_first 50, no color
+        # refinement, so that the trace stays small).
+        prof = os.path.join(tmp, "prof")
+        run_cli(argv(["--frames", "2", "--log", os.path.join(tmp, "prof.jsonl"),
+                      "--profile-dir", prof],
+                     **{"mapping.iters_first": 50, "mapping.color_refine": "false"}),
+                "profile", timeout=300)
+        trace_path = os.path.join(prof, "trace.json")
+        shares, n_kern = busy_shares(trace_path)
+        log(f"profile: trace {os.path.getsize(trace_path) / 2**20:.1f} MiB, {n_kern} kernels, "
+            f"with the track and map ranges and {', '.join(K1_K2_NAMES)}")
+        for k, (wall, busy) in enumerate(shares):
+            log(f"profile: frame {k}: wall {wall:.1f} ms, kernel time {busy:.1f} ms, "
+                f"busy share {busy / wall:.4f}")
+
+        # render_image of the final map at the last pose: the whole image on
+        # the card, timed; a 32-row band at full width (rows 224-255: two
+        # whole chunks, the same rays as in the whole image) on the card and
+        # on the CPU.
+        slam = NiceSLAM(load_config(config, overrides=dict(overrides)))
+        ckpt = os.path.join(ck, f"frame_{frames - 1:06d}")
+        if slam.restore(ckpt) != frames:
+            raise AssertionError(f"render: {ckpt} is not the last frame's")
+        st, intr = slam.state, slam.intr
+        c2w = torch.as_tensor(slam.est_c2w[-1], dtype=torch.float32, device="cuda")
+        depth = torch.from_numpy(depths[-1]).cuda()
+        set_launches({})
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render_image(st.decoders, st.grids, slam.bounds, slam.scene_bound, intr,
+                               c2w, depth, "color", slam.rcfg)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launched = all_launches()
+        check_route_launches("render_image", "fused", launched, forward_only=True)
+        if not (out.rgb.shape == (intr.H, intr.W, 3) and bool(torch.isfinite(out.rgb).all())
+                and bool(torch.isfinite(out.depth).all())):
+            raise AssertionError(f"render: rgb {tuple(out.rgb.shape)} or not finite")
+        band = intr._replace(H=32, cy=intr.cy - 224)
+
+        def band_render(dev):
+            to = lambda t: t.to(dev)  # noqa: E731
+            o = render_image(tree_map(to, st.decoders), tree_map(to, st.grids),
+                             tree_map(to, slam.bounds), to(slam.scene_bound), band,
+                             to(c2w), to(depth[224:256]), "color", slam.rcfg)
+            return {k: getattr(o, k).cpu() for k in ("rgb", "depth", "depth_var", "weights")}
+
+        gpu, t0 = band_render("cuda"), time.perf_counter()
+        cpu = band_render("cpu")
+        t_cpu = time.perf_counter() - t0
+        for k in cpu:
+            rel = max_err(gpu[k], cpu[k]) / max(float(cpu[k].abs().max()), 1e-12)
+            log(f"render: band {k:<10} card vs CPU max rel err {rel:.3e}")
+            if not rel <= 1e-4:
+                raise AssertionError(f"render: {k} card vs CPU differs by {rel:.3e} (> 1e-4)")
+        log(f"render: render_image {intr.W}x{intr.H} on the card: seconds per image "
+            f"{[round(t, 4) for t in secs]} (the first includes warm-up), K1 launches "
+            f"{launched['trilerp_fwd'] // len(secs)} per image; the 32-row band on the CPU "
+            f"{t_cpu:.2f} s")
+        del slam, out
+    return dt
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8)
@@ -1489,6 +1798,9 @@ def main():
     t0 = time.perf_counter()
     phase_cli()
     log(f"cli phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_real_data()
+    log(f"real data phase: {time.perf_counter() - t0:.1f} s")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]
     log(f"ATE per seed (cm), fused route: {[round(a, 4) for a in ates]}, "

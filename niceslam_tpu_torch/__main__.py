@@ -3,6 +3,9 @@
     python -m niceslam_tpu_torch configs/cofusion.yaml --set dataset=synthetic \\
         --frames 12 --ckpt-dir out/ckpts --trajectory out/traj.npy \\
         --mesh out/mesh.ply --mesh-resolution 64 [--cpu]
+    python -m niceslam_tpu_torch configs/cofusion.yaml \
+        --set data.input_folder=data/cofusion/room4 --vis-dir out/vis \
+        --profile-dir out/prof
 
 It runs on the CUDA card unless ``--cpu`` is given. ``--set K=V`` overrides
 a dotted config key (the value is read as JSON where it parses, else as a
@@ -11,12 +14,18 @@ through the prefetcher; with ``--ckpt-dir`` a checkpoint is written every
 ``mapping.ckpt_freq`` frames (after the pending async guard is settled, so
 no unverified map is saved), and ``--resume CKPT`` continues from one; with
 ``--mesh`` a mesh is written every ``mapping.mesh_freq`` frames and at the
-end. The last line of standard output is
+end; with ``--vis-dir`` a render panel every ``mapping.vis_freq`` frames
+(``utils/visualizer.py``); with ``--profile-dir`` a ``torch.profiler``
+trace of the frame loop, ``trace.json``, holding the ``track`` and ``map``
+ranges. The dataset is ``cfg.dataset`` read from ``data.input_folder``
+(``io/datasets``; the config's ``data:`` block overrides a top-level
+``data_input_folder``). The last line of standard output is
 ``{"frames": .., "fps_avg": .., "ate_rmse_cm": ..}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -29,6 +38,7 @@ from .eval.mesher import extract_mesh, postprocess_mesh, write_ply
 from .io.prefetch import Prefetcher
 from .slam.system import NiceSLAM
 from .utils.checkpoint import save_checkpoint
+from .utils.profiling import trace
 
 
 def parse_overrides(items):
@@ -73,6 +83,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-resolution", type=int, default=128)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--trajectory", default=None, help="save the poses (.npy)")
+    ap.add_argument("--vis-dir", default=None, help="write render panels here")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the frame loop here")
     ap.add_argument("--resume", default=None, metavar="CKPT",
                     help="continue from a checkpoint file")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -81,6 +94,7 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, overrides=parse_overrides(args.overrides))
     log_path = args.log or os.path.join(cfg.output or "output", "metrics.jsonl")
     slam = NiceSLAM(cfg, device="cpu" if args.cpu else "cuda", log_path=log_path)
+    slam.vis_dir = args.vis_dir
     n = args.frames if args.frames is not None else len(slam.reader)
     slam.n_imgs = n
     start = slam.restore(args.resume) if args.resume else 0
@@ -88,7 +102,8 @@ def main(argv=None) -> int:
     mesh_stem = os.path.splitext(args.mesh)[0] if args.mesh else None
 
     pf = Prefetcher(slam.reader, device=slam.device, start=start, end=n)
-    try:
+    with trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext(), \
+            contextlib.closing(pf):
         for i, frame in enumerate(pf, start=start):
             slam.step(frame)
             if mesh_stem and mesh_every > 0 and i > 0 and i % mesh_every == 0:
@@ -100,9 +115,7 @@ def main(argv=None) -> int:
                     slam.state, slam.est_c2w, slam.gt_c2w, i,
                     bounds=slam.bounds, scene_bound=slam.scene_bound,
                 )
-    finally:
-        pf.close()
-    res = slam.result()
+        res = slam.result()
     if cfg.verbose:
         print(f"[niceslam] timer: {json.dumps(slam.timer.summary())}")
     if args.trajectory:

@@ -34,6 +34,18 @@ def pixel_dirs(intr: Intrinsics, i: torch.Tensor, j: torch.Tensor) -> torch.Tens
     )
 
 
+def rays_for_image(intr: Intrinsics, c2w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World-frame rays ``(rays_o, rays_d)``, each ``[H, W, 3]``, for every
+    pixel of the image, on ``c2w``'s device."""
+    j, i = torch.meshgrid(
+        torch.arange(intr.H, dtype=c2w.dtype, device=c2w.device),
+        torch.arange(intr.W, dtype=c2w.dtype, device=c2w.device),
+        indexing="ij",
+    )
+    rays_d = pixel_dirs(intr, i, j) @ c2w[:3, :3].T
+    return c2w[:3, 3].expand(rays_d.shape), rays_d
+
+
 class RayBatch(NamedTuple):
     """A sampled batch of rays with their supervision targets."""
 

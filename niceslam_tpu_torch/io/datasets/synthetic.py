@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...core.rays import Intrinsics
-from .base import Frame
+from .base import Frame, register
 
 WALL_COLORS = {
     # axis, sign -> base RGB
@@ -109,6 +109,7 @@ def circular_trajectory(
     return poses
 
 
+@register("synthetic")
 class SyntheticBoxReader:
     """Frame reader over the analytic box scene (config-driven)."""
 

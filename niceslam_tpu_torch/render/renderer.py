@@ -10,6 +10,9 @@
 The z-values are built on DETACHED rays while the sample points use the live
 rays, so pose gradients (and forward-mode tangents) reach the points but not
 the sample placement.
+
+:func:`render_image` renders a whole image in row chunks (visualizer and
+evaluation), without gradients.
 """
 from __future__ import annotations
 
@@ -87,3 +90,48 @@ def render_rays(
         z_all = sampling.merge_z_vals(z_vals, z_imp.detach())
         out = eval_composite(z_all)
     return out
+
+
+def render_image(
+    params,
+    grids: Dict[str, torch.Tensor],
+    bounds: Dict[str, torch.Tensor],
+    scene_bound: torch.Tensor,
+    intr: rays_mod.Intrinsics,
+    c2w: torch.Tensor,
+    gt_depth: Optional[torch.Tensor] = None,
+    stage: str = "color",
+    cfg: RenderConfig = RenderConfig(),
+    rows_per_chunk: int = 16,
+) -> compositing.RenderOutputs:
+    """Render the image at pose ``c2w`` in chunks of ``rows_per_chunk * W``
+    rays, as the JAX package's ``render_image`` does: H is padded to a
+    multiple of ``rows_per_chunk`` by repeating the last row (rays and
+    ``gt_depth``), each chunk goes through :func:`render_rays` (its far
+    bound reads the chunk's own largest depth), and the padding is cropped
+    off. Returns ``rgb [H, W, 3]``, ``depth``, ``depth_var [H, W]`` and
+    ``weights [H, W, S]``."""
+    H, W = intr.H, intr.W
+    pad = (-H) % rows_per_chunk
+    n = rows_per_chunk * W
+    with torch.no_grad():
+        ro, rd = rays_mod.rays_for_image(intr, c2w)
+        if pad:
+            ro = torch.cat([ro, ro[-1:].expand(pad, W, 3)], 0)
+            rd = torch.cat([rd, rd[-1:].expand(pad, W, 3)], 0)
+            if gt_depth is not None:
+                gt_depth = torch.cat([gt_depth, gt_depth[-1:].expand(pad, W)], 0)
+        ro, rd = ro.reshape(-1, n, 3), rd.reshape(-1, n, 3)
+        gd = None if gt_depth is None else gt_depth.reshape(-1, n)
+        outs = [
+            render_rays(params, grids, bounds, scene_bound, ro[k], rd[k],
+                        None if gd is None else gd[k], stage, cfg)
+            for k in range(ro.shape[0])
+        ]
+    Hp = H + pad
+    return compositing.RenderOutputs(
+        rgb=torch.cat([o.rgb for o in outs]).reshape(Hp, W, 3)[:H],
+        depth=torch.cat([o.depth for o in outs]).reshape(Hp, W)[:H],
+        depth_var=torch.cat([o.depth_var for o in outs]).reshape(Hp, W)[:H],
+        weights=torch.cat([o.weights for o in outs]).reshape(Hp, W, -1)[:H],
+    )

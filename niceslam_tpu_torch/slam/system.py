@@ -52,14 +52,15 @@ from ..core.rays import Intrinsics, draw_pixels
 from ..core.transfer import HostCopy, to_device
 from ..eval.ate import ate_rmse
 from ..grid.hierarchy import GridConfig, init_grids
-from ..io.datasets.base import Frame, FrameReader
+from ..io.datasets.base import Frame, FrameReader, get_dataset
 from ..io.prefetch import Prefetcher
 from ..models.decoders import DecoderConfig, init_decoders
-from ..models.pretrained import load_decoders_npz
+from ..models.pretrained import load_pretrained_decoders
 from ..render.renderer import RenderConfig
 from ..utils.checkpoint import load_checkpoint
 from ..utils.logging import MetricsLogger
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, annotate
+from ..utils.visualizer import save_frame_vis
 from . import keyframes as kf_mod
 from .mapper import (
     MapOptConfig,
@@ -105,17 +106,11 @@ class NiceSLAM:
         if cfg.parallel != ParallelConfig():
             raise NotImplementedError(
                 "this package runs on one device: a non-default `parallel` "
-                "block waits for the multi-device slice (ROADMAP, later slice 6)"
+                "block waits for the multi-device slice, the next one "
+                "(ROADMAP, queue 1 item 6)"
             )
         if reader is None:
-            if cfg.dataset != "synthetic":
-                raise NotImplementedError(
-                    f"no reader for dataset {cfg.dataset!r}: the Co-Fusion, "
-                    "Replica, TUM and ScanNet readers are ROADMAP's later slice 5"
-                )
-            from ..io.datasets.synthetic import SyntheticBoxReader
-
-            reader = SyntheticBoxReader(cfg)
+            reader = get_dataset(cfg)
         self.cfg = cfg
         self.seed = seed
         self.reader = reader
@@ -151,11 +146,9 @@ class NiceSLAM:
         )
         decoders = init_decoders(dec_cfg, gen=init_gen, device=self.device)
         if cfg.pretrained_coarse or cfg.pretrained_middle_fine:
-            if not cfg.pretrained_middle_fine.endswith(".npz"):
-                raise NotImplementedError(
-                    "only the .npz pretrained-decoder format is implemented"
-                )
-            decoders = load_decoders_npz(cfg.pretrained_middle_fine, decoders)
+            decoders = load_pretrained_decoders(
+                decoders, cfg.pretrained_coarse, cfg.pretrained_middle_fine
+            )
         self.state = MapState(
             grids=grids,
             decoders=decoders,
@@ -201,6 +194,9 @@ class NiceSLAM:
         # decoders, cams, losses)) of every mapping pass, it may corrupt
         # them; the NaN guard must contain the fault.
         self.fault_hook = None
+        # A directory for render panels (utils/visualizer.py) every
+        # mapping.vis_freq frames; None writes none.
+        self.vis_dir: Optional[str] = None
         # Async sync: the last event's (snapshot, passes, loss tails) until
         # _verify_pending checks it, and the deferred track-loss curves.
         self._pending_verify = None
@@ -603,7 +599,8 @@ class NiceSLAM:
 
     # ------------------------------------------------------------------ run
     def step(self, frame: Frame):
-        """Process one frame: track, then map if scheduled."""
+        """Process one frame: track, then map if scheduled, then write a
+        render panel if ``vis_dir`` is set and the frame is due."""
         idx = len(self.est_c2w)
         t0 = time.perf_counter()
         first = idx == 0
@@ -615,7 +612,7 @@ class NiceSLAM:
             depth=self._tensor(frame.depth),
             gt_c2w=frame.gt_c2w,
         )
-        with self.timer.section("track"):
+        with self.timer.section("track"), annotate("track"):
             self.track(frame)
         t_track = time.perf_counter()
         m = self.cfg.mapping
@@ -625,8 +622,19 @@ class NiceSLAM:
             or idx % m.every_frame == 0
             or idx == self.n_imgs - 1
         ):
-            with self.timer.section("map"):
+            with self.timer.section("map"), annotate("map"):
                 self.map_frame(frame, first=first)
+        t_map = time.perf_counter()
+        if (
+            self.vis_dir
+            and idx % max(m.vis_freq, 1) == 0
+            and not (idx == 0 and self.cfg.tracking.no_vis_on_first_frame)
+        ):
+            save_frame_vis(
+                self.vis_dir, idx, self.state.decoders, self.state.grids,
+                self.bounds, self.scene_bound, self.intr, self._tensor(self.est_c2w[-1]),
+                frame.color, frame.depth, self.rcfg,
+            )
         t_end = time.perf_counter()
         self.log.frame_done()
         # Host clocks: strict sync reads the pose and the mapping losses back
@@ -636,7 +644,7 @@ class NiceSLAM:
             "event": "frame", "frame": idx,
             "dt": round(t_end - t0, 4),
             "dt_track": round(t_track - t0, 4),
-            "dt_map": round(t_end - t_track, 4),
+            "dt_map": round(t_map - t_track, 4),
             "fps_avg": round(self.log.fps, 3),
             "track_loss": (
                 self.track_losses[-1]

@@ -1,15 +1,57 @@
-"""Wall-clock section timing of the SLAM loop.
+"""Profiling hooks and wall-clock section timing of the SLAM loop.
 
-``StepTimer`` is the JAX package's section timer on the host clock. It does
-not wait for the card: in strict sync a section ends after the host has read
-its results back, so it covers the device work; in async sync it covers
-what the host spent queueing it.
+- :func:`trace` records everything inside the block with ``torch.profiler``
+  (host and, where CUDA is available, the card's kernels) and writes one
+  Chrome trace, ``trace.json``, into ``log_dir``.
+- :func:`annotate` names a range: a ``record_function`` that the trace
+  shows, and an NVTX range for an external profiler once CUDA is
+  initialised (``torch.cuda.nvtx`` raises on a CPU-only build). Outside a
+  trace it costs a few microseconds of host time and launches nothing.
+  ``NiceSLAM.step`` names its ``track`` and ``map`` sections so.
+- ``StepTimer`` is the JAX package's section timer on the host clock. It
+  does not wait for the card: in strict sync a section ends after the host
+  has read its results back, so it covers the device work; in async sync it
+  covers what the host spent queueing it.
+
+The JAX package's ``start_server`` (a live profiler for tensorboard) has no
+counterpart here.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record everything inside the block; write ``log_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named range in the profiler's trace (and NVTX, once CUDA is up)."""
+    nvtx = torch.cuda.is_initialized()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
 
 
 class StepTimer:

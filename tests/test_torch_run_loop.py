@@ -49,15 +49,15 @@ def test_unknown_config_key_raises():
 
 
 def test_what_one_device_cannot_run_is_refused():
-    """A non-default ``parallel`` block and a dataset without a reader
-    raise, naming the slice that brings them."""
+    """A non-default ``parallel`` block raises, naming the slice that brings
+    it; a dataset without a reader raises, naming the readers there are."""
     cfg = dataclasses.replace(tiny_config(), parallel=load_config(
         os.path.join(_ROOT, "configs", "apartment_multihost.yaml"),
         overrides={"parallel.map": 2}).parallel)
     with pytest.raises(NotImplementedError, match="multi-device"):
         NiceSLAM(cfg, reader=SyntheticBoxReader(cfg, n_frames=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        NiceSLAM(dataclasses.replace(tiny_config(), dataset="cofusion"), device="cpu")
+    with pytest.raises(KeyError, match="unknown dataset 'kitti'.*'cofusion'"):
+        NiceSLAM(dataclasses.replace(tiny_config(), dataset="kitti"), device="cpu")
 
 
 class _Reader:
