@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``niceslam_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--frames 8] [--iters-first 1500] [--profile] [--seeds 1]
+                          [--multi-only]
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
@@ -79,12 +80,37 @@ prints no result):
    frame; ``render_image`` of the final map timed on the card and, on a
    32-row band, held against the CPU.
 
+11. multi-device, on the one card: ranks spawned as processes that
+   share ``cuda:0`` and meet over gloo (NCCL refuses two ranks on one
+   card). (a) On 2 and 4 ranks (``map`` = ranks): the halo sampler
+   (``grid/shard.py``) on each rank's Z block of a grid of the fine and
+   middle shapes (Z padded to the map axis), N = 48,000, on both routes:
+   values bit for bit and gradients within 2e-5 of the unsharded sampler
+   on the card, the route's kernels launched by every rank on its block;
+   then a full-width mapping pass of frame 0's map (1000 px, a window of
+   frames 0-1, BA on frame 1, the system's pass configuration) sharded at
+   ``(map, kf)`` = (2, 1), (1, 2), (2, 2) against the same pass unsharded
+   on the card, for the staged plans of 4 (middle, middle, fine, color)
+   and 12 iterations: losses within 2e-4, the first row's summed gradients
+   within 2e-5 of each leaf's largest, and with kf = 1 the grids, decoders
+   and cameras within 2e-5 at the end (with kf = 2 printed: Adam amplifies
+   the rounding of the slices' sum), every rank the same map. Each rank
+   prints its seconds, peak memory, launches and its time in all_reduce.
+   (b) ``NiceSLAM`` with ``parallel.track_role`` and ``parallel.stage_ep``
+   on the devices ``[cuda:0, cuda:0]``, the fused strict main path: its
+   digest must equal phase 4's. (c) ``python -m niceslam_tpu_torch
+   configs/cofusion.yaml`` on 4 ranks (``map = 2, kf = 2``, synthetic
+   scene, async, Adam, ``iters_first`` cut to 100, no color refinement, 5
+   frames, checkpoints every 2 frames), then a resume from frame 2: every
+   rank exits 0 (the command fails when the ranks' trajectories differ),
+   no lost track.
+
 ``--profile`` adds a phase after the fused main path: two more every_frame
 groups, the first timed, the second under ``torch.profiler``, for the
 card's busy share and the kernels that take its time (slow: the profiler's
 host side takes minutes to digest the ~10^5 kernels of a group).
 ``--seeds N`` runs the fused main path again for seeds 1 to N-1 and prints
-the ATE of every seed.
+the ATE of every seed. ``--multi-only`` runs phases 1, 4 (fused) and 11.
 
 It then prints the kernels' JSON line, the card's ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. It needs one CUDA device and the
@@ -1461,8 +1487,10 @@ CLI_WITH_LAUNCHES = (
     "import json, sys\n"
     "from niceslam_tpu_torch.__main__ import main\n"
     "from niceslam_tpu_torch.ops import packed_kernels as pk, trilerp_kernels as tk\n"
+    "import torch\n"
     "rc = main(sys.argv[1:])\n"
     "print('launches ' + json.dumps({**tk.LAUNCHES, **pk.LAUNCHES}), file=sys.stderr)\n"
+    "print(f'peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB', file=sys.stderr)\n"
     "sys.exit(rc)\n"
 )
 # The kernels' names in a profiler trace (csrc/trilerp.cu: K1, and K2's two
@@ -1749,12 +1777,443 @@ def phase_real_data(frames: int = 6):
     return dt
 
 
+# ---------------------------------------------------------------- phase 11
+# Ranks of the multi-rank phase: spawned processes that share cuda:0 and
+# meet over gloo (NCCL refuses two ranks on one card). Each runs a list of
+# jobs and writes its results, with its seconds, peak device memory and the
+# time it spent in all_reduce, to a JSON file.
+RANK_TIMEOUT_S = 180
+
+
+def _rank_main(rank, world, init, jobs, out_dir):
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    try:
+        import niceslam_tpu_torch  # noqa: F401  (sets TF32 off)
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world,
+                                rank=rank, timeout=timedelta(seconds=RANK_TIMEOUT_S))
+        spent = {"s": 0.0, "calls": 0}
+        plain_all_reduce = dist.all_reduce
+
+        def timed_all_reduce(*a, **kw):
+            torch.cuda.synchronize()  # charge the collective, not the kernels before it
+            t0 = time.perf_counter()
+            out = plain_all_reduce(*a, **kw)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+
+        dist.all_reduce = timed_all_reduce
+        results = []
+        for name, kw in jobs:
+            spent.update(s=0.0, calls=0)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = RANK_JOBS[name](**kw)
+            torch.cuda.synchronize()
+            res.update(seconds=time.perf_counter() - t0, all_reduce_s=spent["s"],
+                       all_reduce_calls=spent["calls"],
+                       peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+            results.append(res)
+        dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(world: int, jobs, deadline_s: float = 240.0):
+    """Run ``jobs`` (``[(name, kwargs)]``) on ``world`` ranks on cuda:0;
+    returns ``results[rank][job]``. A failed rank or the deadline kills
+    them all and raises."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main, args=(r, world, init, jobs, tmp), daemon=True)
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        t_end = time.monotonic() + deadline_s
+        try:
+            while True:
+                codes = [p.exitcode for p in procs]
+                if all(c == 0 for c in codes):
+                    break
+                if any(c not in (None, 0) for c in codes) or time.monotonic() > t_end:
+                    errs = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp))
+                            if f.endswith(".err")]
+                    raise AssertionError(f"ranks: exit codes {codes}\n" + "\n".join(errs))
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+
+def _halo_job(shape, route, n_map, n_pts=48_000, seed=0):
+    """The halo sampler on this rank's block of a grid of ``shape`` padded
+    to ``n_map`` rows (``pad_grid_for_sharding``), against the unsharded
+    sampler on the whole grid, both on the card: the launches of the
+    sharded call only, its errors and times."""
+    from niceslam_tpu_torch.grid.shard import block_of, sample_grid_sharded
+    from niceslam_tpu_torch.ops.trilinear import sample_grid, sampler_route
+    from niceslam_tpu_torch.parallel.mesh import make_mesh
+    from niceslam_tpu_torch.parallel.sharded_mapper import pad_grid_for_sharding
+
+    g = torch.Generator().manual_seed(seed)
+    bound = torch.tensor([[-2.0, 2.0], [-1.5, 1.5], [-3.0, 3.0]])
+    grid, bound = pad_grid_for_sharding(torch.randn(shape, generator=g), bound, n_map)
+    pts = torch.rand((n_pts, 3), generator=g) * (bound[:, 1] - bound[:, 0]) + bound[:, 0]
+    pts[:64, 2] = bound[2, 1]  # vz == nz - 1: the border start
+    ct = torch.randn((n_pts, shape[-1]), generator=g)
+    grid, bound, pts, ct = (t.cuda() for t in (grid, bound, pts, ct))
+    mesh = make_mesh(n_map, 1)
+
+    def run(sharded):
+        gr = (block_of(grid, mesh) if sharded else grid).clone().requires_grad_(True)
+        p = pts.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sampler_route(route):
+            out = (sample_grid_sharded(gr, p, bound, mesh) if sharded
+                   else sample_grid(gr, p, bound))
+            torch.sum(out * ct).backward()
+        torch.cuda.synchronize()
+        return out.detach(), gr.grad, p.grad, (time.perf_counter() - t0) * 1e3
+
+    run(False)  # warm both
+    run(True)
+    want, want_g, want_p, ms_plain = run(False)
+    set_launches({})
+    out, d_blk, d_p, ms = run(True)
+    launches = all_launches()
+    check_route_launches(f"halo {route} map={n_map} {tuple(shape)}", route, launches)
+    err_g = max_err(d_blk, block_of(want_g, mesh))
+    err_p = max_err(d_p, want_p)
+    if not torch.equal(out, want) or err_g > 2e-5 or err_p > 2e-5:
+        raise AssertionError(f"halo {route} map={n_map} {tuple(shape)}: values "
+                             f"{'equal' if torch.equal(out, want) else max_err(out, want)}, "
+                             f"grid grad {err_g:.3e}, point grad {err_p:.3e}")
+    return dict(job="halo", route=route, n_map=n_map, shape=list(shape), zb=int(d_blk.shape[0]),
+                launches=launches, err_grid=err_g, err_pts=err_p, ms=ms, ms_unsharded=ms_plain)
+
+
+def pass_state(pp, grids=None) -> dict:
+    """A pass's parameters: the (assembled) grids, cameras and decoders."""
+    from niceslam_tpu_torch.models.decoders import tree_leaves
+
+    return dict(grids={k: v.detach().clone() for k, v in (grids or pp.params["grids"]).items()},
+                cams=pp.params["cams"].detach().clone(),
+                decoders=[t.detach().clone() for t in tree_leaves(pp.params["decoders"])])
+
+
+def state_errs(a: dict, b: dict) -> dict:
+    out = {f"grid/{k}": max_err(v, b["grids"][k]) for k, v in a["grids"].items()}
+    out["cams"] = max_err(a["cams"], b["cams"])
+    out["decoders"] = max([max_err(x, y) for x, y in zip(a["decoders"], b["decoders"])],
+                          default=0.0)
+    return out
+
+
+def first_grads(reduce=None):
+    """A ``reduce`` hook for ``run_schedule`` (around ``reduce``, if given)
+    that keeps copies of the first row's gradients; returns ``(hook,
+    kept)``."""
+    kept = []
+
+    def hook(loss, grads, **kw):
+        if reduce is not None:
+            loss, grads = reduce(loss, grads, **kw)
+        if not kept:
+            kept.append([None if g is None else g.detach().clone() for g in grads])
+        return loss, grads
+
+    return hook, kept
+
+
+def grad_errs(pp, got, want, mesh) -> dict:
+    """Per kind of leaf, the largest ``max|got - want| / max|want|`` of the
+    first row's gradients (``want`` of the whole grids, ``got`` of this
+    rank's blocks)."""
+    from niceslam_tpu_torch.grid.shard import block_of
+
+    out = {}
+    for (kind, _), g, w in zip(pp.groups, got, want):
+        if g is None or w is None:
+            if (g is None) != (w is None):
+                raise AssertionError(f"first-row gradients: {kind} None on one side only")
+            continue
+        if kind == "grids":
+            w = block_of(w, mesh)
+        out[kind] = max(out.get(kind, 0.0), max_err(g, w) / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def _mapping_job(path, n_map, n_kf, which):
+    """The sharded ``run_schedule`` of pass ``which`` saved at ``path``;
+    returns its losses, its first row's summed gradients and its final
+    parameters against the unsharded pass saved there."""
+    from niceslam_tpu_torch.parallel import sharded_mapper as sm
+    from niceslam_tpu_torch.parallel.mesh import make_mesh
+    from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+    from niceslam_tpu_torch.slam.mapper import init_opt_state, make_pass_params
+
+    a = torch.load(path, map_location="cuda:0", weights_only=False)
+    sched, ref = a["passes"][which]
+    rt = MapKfRuntime(make_mesh(n_map, n_kf), "cuda:0", "gloo")
+    pp = make_pass_params(rt.split(a["grids"]), a["decoders"], a["cams"], a["pcfg"])
+    opt = init_opt_state(pp)
+    plain_reduce = sm.reduce_over_kf
+    sm.reduce_over_kf, kept = first_grads(plain_reduce)
+    set_launches({})
+    try:
+        losses = rt.run_schedule(
+            pp, opt, sched, rt.split(a["masks"]), a["bounds"], a["scene_bound"], a["intr"],
+            a["colors"], a["depths"], a["valid"], a["fixed"], a["pcfg"], a["rcfg"],
+            pixels=a["pixels"])
+    finally:
+        sm.reduce_over_kf = plain_reduce
+    launches = all_launches()
+    check_route_launches(f"sharded pass {n_map}x{n_kf}", "fused", launches)
+    grids = rt.assemble(pp.params["grids"])
+    lo, want = losses.cpu(), ref["losses"].cpu()
+    return dict(job="mapping", n_map=n_map, n_kf=n_kf, launches=launches,
+                diffs=state_errs(pass_state(pp, grids), ref), held=n_kf == 1,
+                grad_err=grad_errs(pp, kept[0], ref["grads"], rt.mesh),
+                loss_first_equal=bool(lo[0] == want[0]),
+                loss_err=float(((lo - want).abs() / (2e-4 + 2e-4 * want.abs())).max()),
+                digest=digest(np.zeros((1, 4, 4), np.float32), grids),
+                iters=int(len(lo)))
+
+
+RANK_JOBS = {"halo": _halo_job, "mapping": _mapping_job}
+
+
+def mapping_pass_payload(cfg, run: dict, path: str, iters):
+    """Full-width (``mapping.pixels``) mapping passes of frame 0's map
+    (``run``'s grids after frame 0, padded for map = 2, its decoders): a
+    window of frames 0 and 1 at their true poses, BA on frame 1, the
+    system's own pass configuration (the shipped decoders stay frozen),
+    the staged plan of each of ``iters`` iterations on draws made here.
+    Runs them unsharded on the card and saves them, their losses and
+    final states to ``path``; returns the last one's seconds."""
+    from niceslam_tpu_torch.core.pose import tensor_from_camera
+    from niceslam_tpu_torch.parallel.sharded_mapper import pad_grid_for_sharding
+    from niceslam_tpu_torch.slam import mapper
+
+    slam, reader = new_slam(cfg, 2, 0)
+    bounds, grids = {}, {}
+    for lvl, g in run["kept0"].items():
+        grids[lvl], bounds[lvl] = pad_grid_for_sharding(g.cuda(), slam.bounds[lvl], 2)
+    f0, f1 = reader[0], reader[1]
+    colors = torch.stack([torch.as_tensor(f.color) for f in (f0, f1, f0)]).cuda()
+    depths = torch.stack([torch.as_tensor(f.depth) for f in (f0, f1, f0)]).cuda()
+    cams = tensor_from_camera(torch.as_tensor(np.stack([f0.gt_c2w, f1.gt_c2w, f0.gt_c2w]),
+                                              dtype=torch.float32).cuda())
+    valid, fixed = np.array([True, True, False]), np.array([True, False, True])
+    m = cfg.mapping
+    mcfg = slam._make_mcfg(True, False, m.lr_factor)  # as the system's pass, with BA
+    pcfg = slam._make_pcfg(mcfg)
+    scheds = [mapper.schedule_arrays(mapper.build_stage_plan(
+        n, m.middle_iter_ratio, m.fine_iter_ratio, m.stage_lr), mcfg) for n in iters]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vidx = torch.tensor([0, 1], device="cuda")
+    pixels = {it: mapper.draw_mapping_pixels(gen, vidx, m.pixels, slam.intr, "cuda")
+              for it in range(max(iters))}
+    masks = {lvl: torch.ones(g.shape[:3] + (1,), device="cuda") for lvl, g in grids.items()}
+    a = dict(grids=grids, masks=masks, decoders=slam.state.decoders, cams=cams, bounds=bounds,
+             scene_bound=slam.scene_bound, intr=slam.intr, colors=colors, depths=depths,
+             valid=valid, fixed=fixed, pcfg=pcfg, rcfg=slam.rcfg, pixels=pixels)
+    a["passes"] = []
+    for sched in scheds:
+        pp = mapper.make_pass_params(grids, slam.state.decoders, cams, pcfg)
+        opt = mapper.init_opt_state(pp)
+        hook, kept = first_grads()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = mapper.run_schedule(pp, opt, sched, masks, bounds, slam.scene_bound,
+                                     slam.intr, colors, depths, valid, fixed, pcfg,
+                                     slam.rcfg, pixels=pixels, reduce=hook)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        a["passes"].append((sched, dict(pass_state(pp), losses=losses, grads=kept[0])))
+        log(f"multi: the unsharded pass ({len(sched)} iterations x {m.pixels} px, "
+            f"Z {[g.shape[0] for g in grids.values()]}): {dt:.3f} s, losses "
+            f"{losses[0].item():.6f} -> {losses[-1].item():.6f}")
+    torch.save(a, path)
+    return dt
+
+
+def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int = 5):
+    """Phase 11: the multi-rank runtime on the one card (see the module
+    docstring). Each mapping pass (``iters``: every stage once with middle
+    twice, and 12) is held in its losses and its first row's summed
+    gradients, and with one kf rank in its final parameters too. With kf
+    slices the float sum of two exact K2 sums loses the low bits of a
+    gradient that nearly cancels, and Adam's per-element normalisation
+    turns that into a step of up to the learning rate, so those parameters
+    are printed, not held (``PERF.md``, section 6)."""
+    shapes = main_path_grid_shapes(cfg)
+    # (a) the halo sampler, then one mapping pass sharded three ways.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pass.pt")
+        dt_plain = mapping_pass_payload(cfg, run, path, iters)
+        for world, meshes in ((2, [(2, 1), (1, 2)]), (4, [(2, 2)])):
+            jobs = [("halo", dict(shape=list(shapes[lvl]), route=route, n_map=world))
+                    for lvl in ("fine", "middle") for route in ROUTE_KERNELS]
+            jobs += [("mapping", dict(path=path, n_map=m, n_kf=k, which=w))
+                     for m, k in meshes for w in range(len(iters))]
+            t0 = time.perf_counter()
+            res = spawn_ranks(world, jobs)
+            log(f"multi: {world} ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s "
+                f"(processes included)")
+            for rank, rows in enumerate(res):
+                for r in rows:
+                    what = (f"halo {r['route']} {r['shape']} map={r['n_map']} zb={r['zb']}"
+                            if r["job"] == "halo" else f"mapping {r['n_map']}x{r['n_kf']}")
+                    extra = (f"{r['ms']:.2f} ms (unsharded {r['ms_unsharded']:.2f}), err grid "
+                             f"{r['err_grid']:.3e} pts {r['err_pts']:.3e}"
+                             if r["job"] == "halo" else
+                             f"loss err/tol {r['loss_err']:.3f}, first loss bit-equal "
+                             f"{r['loss_first_equal']}, {r['iters']} iterations, first-row "
+                             f"gradients max rel err {r['grad_err']}, parameters max diffs "
+                             f"{r['diffs']}{'' if r['held'] else ' (printed)'}, all_reduce "
+                             f"{1e3 * r['all_reduce_s'] / r['iters']:.2f} ms per iteration")
+                    log(f"multi rank {rank}/{world}: {what}: {r['seconds']:.3f} s, peak "
+                        f"{r['peak_mib']:.1f} MiB, all_reduce {r['all_reduce_s'] * 1e3:.1f} ms "
+                        f"in {r['all_reduce_calls']} calls; launches {r['launches']}; {extra}")
+                    if r["job"] == "mapping":
+                        bad = {k: v for k, v in r["diffs"].items()
+                               if r["held"] and not v <= 2e-5}
+                        bad.update({f"gradient {k}": v for k, v in r["grad_err"].items()
+                                    if not v <= 2e-5})
+                        if r["loss_err"] > 1.0 or bad:
+                            raise AssertionError(f"multi: {what} differs from the unsharded "
+                                                 f"pass: losses {r['loss_err']:.3f} of the "
+                                                 f"tolerance, {bad}")
+            for rows in zip(*res):  # every rank of a mapping job holds the same map
+                if rows[0]["job"] == "mapping" and len({r["digest"] for r in rows}) != 1:
+                    raise AssertionError(f"multi: the ranks' maps differ: {rows}")
+            for r in res[0]:
+                if r["job"] == "mapping" and r["iters"] == max(iters):
+                    log(f"multi: mapping {r['n_map']}x{r['n_kf']}: {r['seconds']:.3f} s against "
+                        f"the unsharded pass's {dt_plain:.3f} s on the card alone")
+
+    # (b) the roles on the card named twice: the same bits as phase 4.
+    from niceslam_tpu_torch.config.schema import ParallelConfig
+    from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
+    from niceslam_tpu_torch.slam.system import NiceSLAM
+
+    rcfg = dataclasses.replace(cfg, parallel=ParallelConfig(track_role=True, stage_ep=True))
+    reader = SyntheticBoxReader(rcfg, n_frames=36)
+    slam = NiceSLAM(rcfg, reader=reader, seed=0, devices=["cuda:0", "cuda:0"])
+    slam.n_imgs = run["n_frames"]
+    start_peak("multi roles")
+    clear_tallies()
+    dts = []
+    for k in range(run["n_frames"]):
+        t0 = time.perf_counter()
+        slam.step(reader[k])
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    launches = all_launches()
+    check_route_launches("multi roles", "fused", launches)
+    res = slam.result()
+    got = digest(np.stack(res["est_c2w"]), slam.state.grids)
+    log(f"multi roles: track_role + stage_ep on [cuda:0, cuda:0]: per-frame seconds "
+        f"{[round(d, 4) for d in dts]}, peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"MiB, launches {launches}, sha1 {got} (phase 4: {want_digest})")
+    if got != want_digest:
+        raise AssertionError("multi roles: the run differs from the plain main path")
+    del slam
+
+    # (c) the command line on 4 ranks, map = 2 x kf = 2, with a resume.
+    config = os.path.join(ROOT, "configs", "cofusion.yaml")
+    overrides = ["dataset=synthetic", "sync_method=async", "tracking.method=adam",
+                 "mapping.iters_first=100", "mapping.color_refine=false",
+                 "mapping.ckpt_freq=2", "parallel.n_processes=4", "parallel.map=2",
+                 "parallel.kf=2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        def cli_ranks(extra, tag):
+            import socket
+
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            argv = [config, "--frames", str(cli_frames), "--ckpt-dir", os.path.join(tmp, "ck"),
+                    "--log", os.path.join(tmp, f"{tag}.jsonl"),
+                    "--trajectory", os.path.join(tmp, f"{tag}.npy"), *extra,
+                    "--set", f"parallel.coordinator=localhost:{port}"]
+            for o in overrides:
+                argv += ["--set", o]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", CLI_WITH_LAUNCHES, *argv, "--process-id", str(r)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(4)]
+            outs = []
+            try:
+                for p in procs:
+                    outs.append(p.communicate(timeout=300))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            dt = time.perf_counter() - t0
+            for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+                if p.returncode != 0:
+                    raise AssertionError(f"multi cli [{tag}] rank {r}: rc {p.returncode}\n"
+                                         f"{so[-2000:]}\n{se[-4000:]}")
+                info = [line for line in se.splitlines()
+                        if line.startswith(("launches ", "peak "))]
+                log(f"multi cli [{tag}] rank {r}: {' '.join(info)}")
+                check_route_launches(f"multi cli [{tag}] rank {r}", "fused",
+                                     json.loads(info[0][len("launches "):]))
+            last = json.loads(outs[0][0].strip().splitlines()[-1])
+            traj = np.load(os.path.join(tmp, f"{tag}.npy"))
+            log(f"multi cli [{tag}]: 4 ranks in {dt:.1f} s (processes included); rank 0's last "
+                f"line {last}")
+            if not (last["frames"] == cli_frames and traj.shape == (cli_frames, 4, 4)
+                    and np.isfinite(traj).all()):
+                raise AssertionError(f"multi cli [{tag}]: {last}, trajectory {traj.shape}")
+            if not last["ate_rmse_cm"] < ATE_LOST_CM:
+                raise AssertionError(f"multi cli [{tag}]: the track is lost: {last}")
+            return traj
+
+        traj = cli_ranks([], "run")
+        ck = os.path.join(tmp, "ck", "frame_000002")
+        traj2 = cli_ranks(["--resume", ck], "resume")
+        if not np.array_equal(traj2[:3], traj[:3]):
+            raise AssertionError("multi cli: the resumed trajectory does not start with the "
+                                 "saved one")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--iters-first", type=int, default=1500)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--seeds", type=int, default=1)
+    ap.add_argument("--multi-only", action="store_true",
+                    help="phases 1, 4 (fused) and 11 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1772,11 +2231,19 @@ def main():
 
     t_all = time.perf_counter()
     phase_card()
+    if args.multi_only:
+        run = phase_main_path(cfg, args.frames, keep=1)
+        t0 = time.perf_counter()
+        phase_multi(cfg, run, digest(run["poses"], run["grids"]))
+        log(f"multi phase: {time.perf_counter() - t0:.1f} s; total seconds: "
+            f"{time.perf_counter() - t_all:.1f}")
+        return 0
     rows = phase_kernels(cfg)
     for route in ROUTE_KERNELS:
         phase_card_vs_cpu(route)
     repeat = min(2, args.frames)
     runs = {"fused": phase_main_path(cfg, args.frames, keep=repeat)}
+    fused_digest = digest(runs["fused"]["poses"], runs["fused"]["grids"])
     phase_repeat(cfg, runs["fused"], repeat)
     rows += phase_adam(runs["fused"], cfg)
     if args.profile:
@@ -1801,6 +2268,9 @@ def main():
     t0 = time.perf_counter()
     phase_real_data()
     log(f"real data phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_multi(cfg, runs["fused"], fused_digest)
+    log(f"multi phase: {time.perf_counter() - t0:.1f} s")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]
     log(f"ATE per seed (cm), fused route: {[round(a, 4) for a in ates]}, "

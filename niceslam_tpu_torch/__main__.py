@@ -21,11 +21,26 @@ ranges. The dataset is ``cfg.dataset`` read from ``data.input_folder``
 (``io/datasets``; the config's ``data:`` block overrides a top-level
 ``data_input_folder``). The last line of standard output is
 ``{"frames": .., "fps_avg": .., "ate_rmse_cm": ..}``.
+
+On N ranks (``parallel.n_processes: N``, ``parallel.map`` x ``parallel.kf``
+= N, ``parallel/runtime.py``) every rank runs this command with its own
+``--process-id`` (or ``NICESLAM_PROCESS_ID``), the same config and the same
+``parallel.coordinator``:
+
+    for r in 0 1; do python -m niceslam_tpu_torch configs/cofusion.yaml \
+        --set dataset=synthetic --set parallel.n_processes=2 \
+        --set parallel.map=2 --process-id $r & done; wait
+
+Only rank 0 prints, writes the trajectory, meshes, panels, checkpoints and
+the profile, and logs to ``--log``; rank ``r > 0`` logs to
+``<log stem>.rank<r>.jsonl``. At the end every rank's trajectory must equal
+rank 0's bit for bit, else the command fails.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -36,6 +51,7 @@ import torch
 from .config.schema import load_config
 from .eval.mesher import extract_mesh, postprocess_mesh, write_ply
 from .io.prefetch import Prefetcher
+from .parallel.runtime import setup_runtime
 from .slam.system import NiceSLAM
 from .utils.checkpoint import save_checkpoint
 from .utils.profiling import trace
@@ -89,33 +105,60 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", default=None, metavar="CKPT",
                     help="continue from a checkpoint file")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this rank's id when parallel.n_processes > 1 "
+                         "(else NICESLAM_PROCESS_ID)")
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config, overrides=parse_overrides(args.overrides))
+    # The process group and the mesh come before any other use of the device.
+    rt = setup_runtime(cfg, process_id=args.process_id, cpu=args.cpu)
+    try:
+        return _run(args, cfg, rt)
+    finally:
+        if rt.world > 1:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, rt) -> int:
+    lead = rt.rank == 0
     log_path = args.log or os.path.join(cfg.output or "output", "metrics.jsonl")
-    slam = NiceSLAM(cfg, device="cpu" if args.cpu else "cuda", log_path=log_path)
-    slam.vis_dir = args.vis_dir
+    if not lead:
+        log_path = f"{os.path.splitext(log_path)[0]}.rank{rt.rank}.jsonl"
+        cfg = dataclasses.replace(cfg, verbose=False)
+    slam = NiceSLAM(cfg, device=rt.device, log_path=log_path)
+    rt.attach(slam)
+    slam.vis_dir = args.vis_dir if lead else None
     n = args.frames if args.frames is not None else len(slam.reader)
     slam.n_imgs = n
     start = slam.restore(args.resume) if args.resume else 0
     mesh_every, ckpt_every = cfg.mapping.mesh_freq, cfg.mapping.ckpt_freq
-    mesh_stem = os.path.splitext(args.mesh)[0] if args.mesh else None
+    mesh_stem = os.path.splitext(args.mesh)[0] if args.mesh and lead else None
+    profile_dir = args.profile_dir if lead else None
 
     pf = Prefetcher(slam.reader, device=slam.device, start=start, end=n)
-    with trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext(), \
+    with trace(profile_dir) if profile_dir else contextlib.nullcontext(), \
             contextlib.closing(pf):
         for i, frame in enumerate(pf, start=start):
             slam.step(frame)
             if mesh_stem and mesh_every > 0 and i > 0 and i % mesh_every == 0:
                 dump_mesh(slam, f"{mesh_stem}_frame{i:06d}.ply", args.mesh_resolution)
             if args.ckpt_dir and i > 0 and i % ckpt_every == 0:
-                slam.flush()  # never persist an unverified map
-                save_checkpoint(
-                    os.path.join(args.ckpt_dir, f"frame_{i:06d}"),
-                    slam.state, slam.est_c2w, slam.gt_c2w, i,
-                    bounds=slam.bounds, scene_bound=slam.scene_bound,
-                )
+                # Never persist an unverified map. Every rank settles its
+                # guard here, so that all of them roll back at one frame.
+                slam.flush()
+                if lead:
+                    save_checkpoint(
+                        os.path.join(args.ckpt_dir, f"frame_{i:06d}"),
+                        slam.state, slam.est_c2w, slam.gt_c2w, i,
+                        bounds=slam.bounds, scene_bound=slam.scene_bound,
+                    )
         res = slam.result()
+    if not rt.ranks_agree(torch.as_tensor(np.asarray(res["est_c2w"], np.float32))):
+        raise RuntimeError(f"rank {rt.rank}: the ranks' trajectories differ")
+    slam.log.close()
+    if not lead:
+        return 0
     if cfg.verbose:
         print(f"[niceslam] timer: {json.dumps(slam.timer.summary())}")
     if args.trajectory:
@@ -124,7 +167,6 @@ def main(argv=None) -> int:
     if args.mesh:
         nv, nf = dump_mesh(slam, args.mesh, args.mesh_resolution)
         print(f"mesh: {nv} verts, {nf} faces -> {args.mesh}")
-    slam.log.close()
     ate = res.get("ate_rmse")
     print(json.dumps({
         "frames": n,

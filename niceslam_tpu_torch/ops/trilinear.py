@@ -20,8 +20,11 @@ and differ only in how they move bytes:
   the grid (K5), and the lerp in plain PyTorch on the gathered rows
   (:func:`trilerp_packed`).
 
-:func:`sampler_route` switches the route for the code inside it. On CPU
-tensors every kernel runs its plain PyTorch version.
+:func:`sampler_route` switches the route for the code inside it, and
+:func:`override_sampler` replaces :func:`sample_grid` altogether for the code
+inside it (the Z-sharded mapping program installs its halo sampler there,
+``parallel/sharded_mapper.py``, so the decoders need no knowledge of blocks).
+On CPU tensors every kernel runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from .trilerp_kernels import trilerp
 
 ROUTES = ("fused", "packed")
 _ROUTE = "fused"
+_OVERRIDE = None
 
 
 def get_sampler_route() -> str:
@@ -54,6 +58,21 @@ def sampler_route(route: str):
         yield
     finally:
         _ROUTE = prev
+
+
+@contextmanager
+def override_sampler(fn):
+    """Make :func:`sample_grid` call ``fn(grid, pts, bound) -> [N, C]`` for
+    the code inside; the previous sampler comes back on exit, also on an
+    exception. ``sampler_route`` still picks the kernels that ``fn`` reaches
+    through :func:`trilerp_on_route`."""
+    global _OVERRIDE
+    prev = _OVERRIDE
+    _OVERRIDE = fn
+    try:
+        yield
+    finally:
+        _OVERRIDE = prev
 
 
 def normalize_coords(pts: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
@@ -117,13 +136,21 @@ def trilerp_packed(grid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return c0 * (1 - wz) + c1 * wz
 
 
+def trilerp_on_route(grid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Trilinear lerp of ``grid [Z, Y, X, C]`` at voxel coords ``v [N, 3]``
+    on the route :func:`get_sampler_route` names."""
+    if _ROUTE == "packed":
+        return trilerp_packed(grid, v)
+    return trilerp(grid, v.contiguous())
+
+
 def sample_grid(
     grid: torch.Tensor, pts: torch.Tensor, bound: torch.Tensor
 ) -> torch.Tensor:
     """Trilinearly sample ``grid [Z, Y, X, C]`` at world points ``pts [N, 3]``
     -> ``[N, C]``, differentiable in the grid and the points (reverse and
-    forward mode), on the route :func:`get_sampler_route` names."""
-    v = voxel_coords(pts, bound, grid.shape[:3])
-    if _ROUTE == "packed":
-        return trilerp_packed(grid, v)
-    return trilerp(grid, v.contiguous())
+    forward mode), on the route :func:`get_sampler_route` names, or through
+    the sampler :func:`override_sampler` installed."""
+    if _OVERRIDE is not None:
+        return _OVERRIDE(grid, pts, bound)
+    return trilerp_on_route(grid, voxel_coords(pts, bound, grid.shape[:3]))

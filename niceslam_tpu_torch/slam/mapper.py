@@ -22,7 +22,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -222,15 +222,25 @@ def mapping_loss(
     tv_weight: float = 0.0,
     fs_weight: float = 0.0,
     fs_band: float = 0.05,
+    ray_shard: Optional[Tuple[int, int]] = None,
 ):
     """One joint-iteration loss over the keyframe window: per-ray depth L1
     over gt > 0 pixels, the free-space occupancy term, the color L1 in the
     color stage, and the optional TV term. Rays originate from the current
     camera tensors, so BA gradients reach the poses through the sampler's
-    coordinate gradients."""
+    coordinate gradients.
+
+    ``ray_shard=(start, size)`` evaluates only rays ``[start, start + size)``
+    of the draw ``(fidx, i, j)``: every rank of the sharded mapping program
+    (``parallel/sharded_mapper.py``) passes the whole draw and its slice, so
+    the slices over the ``kf`` axis are the unsharded ray set, and their
+    losses (sums over rays) add up to the unsharded loss."""
     grids, decoders, cams = (
         all_params["grids"], all_params["decoders"], all_params["cams"]
     )
+    if ray_shard is not None:
+        start, size = ray_shard
+        fidx, i, j = (t[start:start + size] for t in (fidx, i, j))
     cams = torch.where(cam_fixed[:, None], cams.detach(), cams)
     c2ws = to_homogeneous(camera_from_tensor(cams))  # [F, 4, 4]
     dirs = pixel_dirs(intr, i.to(torch.float32), j.to(torch.float32))
@@ -410,12 +420,20 @@ def run_schedule(
     rcfg: RenderConfig,
     gen: Optional[torch.Generator] = None,
     pixels=None,
+    ray_shard: Optional[Tuple[int, int]] = None,
+    tv_term: Optional[Callable] = None,
+    reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Run one schedule chunk in place on ``pp`` and ``opt_state``; returns
     the per-row losses (0 on inactive rows), still on the device.
 
     ``pixels`` maps a row's ``iter_idx`` to injected ``(fidx, i, j)`` draws;
-    by default each active row draws from ``gen``.
+    by default each active row draws from ``gen``. The sharded mapping
+    program (``parallel/sharded_mapper.py``) passes three more: each row
+    still draws all ``n_pixels`` rays and evaluates its ``ray_shard``;
+    ``tv_term(grids)`` takes the place of ``mapping_loss``'s TV sum; and
+    ``reduce(loss, grads)`` returns the loss and gradients summed over the
+    ranks before the Adam step.
     """
     dev = colors.device
     valid_t = to_device(frame_valid, dev)
@@ -435,11 +453,16 @@ def run_schedule(
         loss = mapping_loss(
             pp.params, bounds, scene_bound, intr, colors, depths, valid_t,
             fixed_t, fidx, i, j, stage, pcfg.w_color_loss, rcfg,
-            tv_weight=pcfg.tv_weight, fs_weight=pcfg.fs_weight, fs_band=pcfg.fs_band,
+            tv_weight=0.0 if tv_term is not None else pcfg.tv_weight,
+            fs_weight=pcfg.fs_weight, fs_band=pcfg.fs_band, ray_shard=ray_shard,
         )
-        grads = torch.autograd.grad(loss, pp.leaves, allow_unused=True)
+        if tv_term is not None and pcfg.tv_weight > 0.0:
+            loss = loss + pcfg.tv_weight * tv_term(pp.params["grids"])
+        grads = list(torch.autograd.grad(loss, pp.leaves, allow_unused=True))
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         adam_update(
-            pp, list(grads), opt_state, sched.lr_grids[r], sched.lr_dec[r],
+            pp, grads, opt_state, sched.lr_grids[r], sched.lr_dec[r],
             float(sched.lr_cam[r]), masks,
         )
         losses.append(loss.detach())

@@ -1,4 +1,4 @@
-"""NiceSLAM: the per-frame track/map loop on one device.
+"""NiceSLAM: the per-frame track/map loop.
 
     frame 0:     mapper initialization (iters_first, lr_first_factor)
     every frame: track (Gauss-Newton or Adam, warm-started by the
@@ -26,9 +26,22 @@ the card, never the math:
   pose (held at the last finite one). The track-loss curves are read at
   ``flush``.
 
+Devices (``devices``, the counterpart of the JAX package's visible
+devices): the first is the main device, where the map lives. With two or
+more, ``parallel.track_role`` runs the tracker on the last one against a
+copy of the map taken once per published version, and ``parallel.stage_ep``
+runs the coarse pass on the second one, from the state before the event,
+and merges the coarse level back after the staged pass (the coarse pass
+touches no level the staged pass reads); in strict sync its NaN guard is
+settled at the merge. Both draw their pixels from the main device's
+generator, so they compute what the plain run computes, bit for bit. A
+multi-rank runtime attached with ``MapKfRuntime.attach``
+(``parallel/runtime.py``) runs every mapping pass sharded over its
+('map', 'kf') mesh and turns both roles off, as in the JAX package.
+
 Randomness: grid/decoder init draws from a CPU ``torch.Generator`` seeded
 with ``seed``; tracker, mapper and overlap pixel draws from a generator on
-the run's device. Keyframe-window selection uses
+the main device. Keyframe-window selection uses
 ``np.random.default_rng((seed, frame, salt))`` exactly as the JAX package
 does, so the two pick the same windows from the same candidates.
 """
@@ -41,7 +54,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE
-from ..config.schema import ParallelConfig, SLAMConfig
+from ..config.schema import SLAMConfig
 from ..core.pose import (
     camera_from_tensor,
     constant_speed_warm_start,
@@ -68,6 +81,7 @@ from .mapper import (
     build_stage_plan,
     chunked_schedule,
     dec_train_table,
+    draw_mapping_pixels,
     init_opt_state,
     make_pass_params,
     run_schedule,
@@ -79,11 +93,15 @@ from .state import (
     restore_keyframes,
     snapshot_keyframes,
 )
-from .tracker import track_config, track_frame
+from .tracker import draw_track_pixels, track_config, track_frame
 
 
 class NiceSLAM:
-    """Single-device SLAM engine over an RGB-D frame stream."""
+    """SLAM engine over an RGB-D frame stream.
+
+    ``devices`` lists the devices of the roles, the main device first; when
+    given it takes the place of ``device``. By default it is ``device``
+    followed by the other visible cards (none on the CPU)."""
 
     def __init__(
         self,
@@ -92,23 +110,27 @@ class NiceSLAM:
         seed: int = 0,
         device=DEFAULT_DEVICE,
         log_path: Optional[str] = None,
+        devices=None,
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if devices is not None:
+            self.devices = [torch.device(d) for d in devices]
+            self.device = self.devices[0]
+        else:
+            self.device = torch.device(device)
+            self.devices = [self.device]
+        if any(d.type == "cuda" for d in self.devices) and not torch.cuda.is_available():
             raise RuntimeError(
                 "NiceSLAM runs on cuda by default and no CUDA device is "
                 "available; pass device='cpu' to run on the CPU"
             )
+        if devices is None and self.device.type == "cuda":
+            main = self.device.index if self.device.index is not None else torch.cuda.current_device()
+            self.devices += [torch.device("cuda", i)
+                             for i in range(torch.cuda.device_count()) if i != main]
         if cfg.sync_method not in ("strict", "async"):
             raise ValueError(f"unknown sync_method {cfg.sync_method!r}")
         if cfg.tracking.method not in ("gn", "adam"):
             raise ValueError(f"unknown tracking.method {cfg.tracking.method!r}")
-        if cfg.parallel != ParallelConfig():
-            raise NotImplementedError(
-                "this package runs on one device: a non-default `parallel` "
-                "block waits for the multi-device slice, the next one "
-                "(ROADMAP, queue 1 item 6)"
-            )
         if reader is None:
             reader = get_dataset(cfg)
         self.cfg = cfg
@@ -207,6 +229,12 @@ class NiceSLAM:
         # Overlap percentages for the next event's keyframe selection
         # (a HostCopy started at the end of the previous event).
         self._overlap_pct = None
+        # The attached multi-rank runtime (parallel/runtime.py), or None.
+        self._runtime = None
+        # track_role: (state.version, the map on the tracker's device).
+        self._track_snap = None
+        # stage_ep: the coarse expert's pass until map_frame merges it.
+        self._ep_pending = None
 
     # ------------------------------------------------------------------ util
     @property
@@ -222,6 +250,46 @@ class NiceSLAM:
         self.scene_bound = scene_bound
         # Host copies for the frustum masks, read once here.
         self._bounds_host = {k: v.cpu().numpy() for k, v in bounds.items()}
+
+    def _fit_obs_counts(self):
+        """Give the observed-voxel counts the grids' Z again after padding or
+        a restore changed it (rows past the old Z count from zero)."""
+        if self._obs_counts is None:
+            return
+        for lvl, g in self.state.grids.items():
+            c = self._obs_counts[lvl]
+            if c.shape[0] != g.shape[0]:
+                new = torch.zeros(g.shape[:3] + (1,), device=self.device)
+                z = min(c.shape[0], g.shape[0])
+                new[:z] = c[:z]
+                self._obs_counts[lvl] = new
+
+    def _track_device(self):
+        """The tracker role's device (``parallel.track_role``), or None to
+        track on the main device: the last device when there are two or
+        more and no runtime is attached."""
+        if self.cfg.parallel.track_role and self._runtime is None and len(self.devices) > 1:
+            return self.devices[-1]
+        return None
+
+    def _expert_device(self):
+        """The coarse stage expert's device (``parallel.stage_ep``), or
+        None: the second device, when no runtime is attached."""
+        if self.cfg.parallel.stage_ep and self._runtime is None and len(self.devices) > 1:
+            return self.devices[1]
+        return None
+
+    def _track_snapshot(self, device):
+        """The published map on the tracker's device, copied once per
+        published version."""
+        v = self.state.version
+        if self._track_snap is None or self._track_snap[0] != v:
+            st = self.state
+            self._track_snap = (v, (
+                _tree_to(st.decoders, device), _tree_to(st.grids, device),
+                _tree_to(self.bounds, device), self.scene_bound.to(device),
+            ))
+        return self._track_snap[1]
 
     # -------------------------------------------------------------- tracking
     def track(self, frame: Frame):
@@ -239,10 +307,24 @@ class NiceSLAM:
             else:
                 init = prev
             st = self.state
-            c2w_t, loss_curve = track_frame(
-                st.decoders, st.grids, self.bounds, self.scene_bound, self.intr,
-                frame.color, frame.depth, init, self.tcfg, self.rcfg, gen=self.gen,
-            )
+            td = self._track_device()
+            if td is None:
+                c2w_t, loss_curve = track_frame(
+                    st.decoders, st.grids, self.bounds, self.scene_bound, self.intr,
+                    frame.color, frame.depth, init, self.tcfg, self.rcfg, gen=self.gen,
+                )
+            else:
+                # The tracker role: the whole solve on its device, on draws
+                # from the main generator; only the pose and the loss curve
+                # come back.
+                pixels = [(i.to(td), j.to(td)) for i, j in
+                          draw_track_pixels(self.gen, self.intr, self.tcfg, self.device)]
+                decs, grids, bounds, sbound = self._track_snapshot(td)
+                c2w_t, loss_curve = track_frame(
+                    decs, grids, bounds, sbound, self.intr, frame.color.to(td),
+                    frame.depth.to(td), init.to(td), self.tcfg, self.rcfg, pixels=pixels,
+                )
+                c2w_t, loss_curve = c2w_t.to(self.device), loss_curve.to(self.device)
             if self.sync_method == "async":
                 # The pose stays on the device: every consumer (warm start,
                 # window, keyframes) is a device op, so nothing waits here.
@@ -316,12 +398,15 @@ class NiceSLAM:
             self.decoder_train == "init" and first
         )
         if self.cfg.coarse and not first:
-            self._run_mapper(frame, cur_c2w, m.iters, lr_factor, coarse=True, refine=False)
+            self._run_mapper(frame, cur_c2w, m.iters, lr_factor, coarse=True,
+                             refine=False, device=self._expert_device())
         for outer_i in range(outer):
             cur_c2w = self._run_mapper(
                 frame, cur_c2w, iters, lr_factor, coarse=False,
                 refine=(mode == "refine"), sel_salt=outer_i,
             )
+        if self._ep_pending is not None:
+            self._merge_coarse_expert()
         if self.sync_method == "async":
             self.est_c2w[-1] = cur_c2w
             passes = self._event_passes
@@ -410,8 +495,10 @@ class NiceSLAM:
 
     def _run_mapper(
         self, frame: Frame, cur_c2w, iters, lr_factor, coarse: bool,
-        refine: bool, sel_salt: int = 0,
+        refine: bool, sel_salt: int = 0, device=None,
     ):
+        """One mapping pass; on ``device`` (the coarse stage expert) it is
+        held back for :meth:`_merge_coarse_expert`."""
         m = self.cfg.mapping
         db = self.state.keyframes
         idx = len(self.est_c2w) - 1
@@ -481,24 +568,56 @@ class NiceSLAM:
         pcfg = self._make_pcfg(mcfg)
         n_total = sum(n for _, n, _ in plan)
         chunks, reals = chunked_schedule(plan, mcfg, min(m.iters, n_total))
-        pp = make_pass_params(grids, self.state.decoders, cams, pcfg)
+        decoders, bounds, scene_bound = self.state.decoders, self.bounds, self.scene_bound
+        run_fn, pixels = run_schedule, None
+        rt = self._runtime
+        if rt is not None:
+            grids, masks, run_fn = rt.split(grids), rt.split(masks), rt.run_schedule
+        if device is not None:
+            # Draw on the main generator, in the order the pass would.
+            valid_idx = to_device(np.flatnonzero(valid), self.device)
+            pixels = {
+                int(c.iter_idx[r]): tuple(
+                    t.to(device) for t in draw_mapping_pixels(
+                        self.gen, valid_idx, pcfg.n_pixels, self.intr, self.device)
+                )
+                for c in chunks for r in range(len(c)) if c.active[r]
+            }
+            grids, masks, decoders, bounds = (
+                _tree_to(t, device) for t in (grids, masks, decoders, bounds)
+            )
+            cams, colors, depths, scene_bound = (
+                t.to(device) for t in (cams, colors, depths, scene_bound)
+            )
+        pp = make_pass_params(grids, decoders, cams, pcfg)
         opt_state = init_opt_state(pp)
         parts = []
         for chunk, real in zip(chunks, reals):
-            lo = run_schedule(
-                pp, opt_state, chunk, masks, self.bounds, self.scene_bound,
+            lo = run_fn(
+                pp, opt_state, chunk, masks, bounds, scene_bound,
                 self.intr, colors, depths, valid, fixed, pcfg, self.rcfg,
-                gen=self.gen,
+                gen=self.gen, pixels=pixels,
             )
             parts.append(lo[:real])
         losses = torch.cat(parts)
         params = pp.params
         new_grids, new_decoders, new_cams = params["grids"], params["decoders"], params["cams"]
+        if rt is not None:
+            new_grids = rt.assemble(new_grids)
         if self.fault_hook is not None:
             new_grids, new_decoders, new_cams, losses = self.fault_hook(
                 idx, (new_grids, new_decoders, new_cams, losses)
             )
         stages = [p[0] for p in plan]
+        if device is not None:
+            losses = losses.to(self.device)
+            self._ep_pending = (
+                idx, stages, new_grids["coarse"].detach(),
+                _detach_tree(new_decoders["coarse"]), losses,
+            )
+            if self.sync_method == "async":
+                self._event_passes.append((idx, coarse, stages, losses))
+            return cur_c2w
         if self.sync_method == "async":
             # Published at once; checked at the next event (_verify_pending).
             self._event_passes.append((idx, coarse, stages, losses))
@@ -528,6 +647,27 @@ class NiceSLAM:
                     return new_poses[wcur]
                 return new_poses[wcur].cpu().numpy()
         return cur_c2w
+
+    def _merge_coarse_expert(self):
+        """Publish the coarse expert's pass after the staged pass: its level
+        and decoder back on the main device. In strict sync its NaN guard
+        runs here; in async the event's guard covers it."""
+        idx, stages, g_c, d_c, losses = self._ep_pending
+        self._ep_pending = None
+        if self.sync_method != "async":
+            lo = losses.cpu().numpy()
+            if not np.isfinite(lo[-1]):
+                self.log.log({
+                    "event": "map_rejected", "frame": idx, "coarse": True,
+                    "loss_last": float(lo[-1]),
+                })
+                return
+            self.log.log({
+                "event": "map", "frame": idx, "coarse": True, "stages": stages,
+                "loss_first": float(lo[0]), "loss_last": float(lo[-1]),
+            })
+        self.state.grids = {**self.state.grids, "coarse": g_c.to(self.device)}
+        self.state.decoders = {**self.state.decoders, "coarse": _tree_to(d_c, self.device)}
 
     # ------------------------------------------------------------ async guard
     def _snapshot_event(self):
@@ -565,6 +705,7 @@ class NiceSLAM:
             return
         grids, decoders, kf_snap, kf_count, kf_slots, tidx, tpose, obs = prev
         self.state.grids, self.state.decoders = grids, decoders
+        self._track_snap = None
         restore_keyframes(self.state.keyframes, kf_snap)
         self._kf_count, self._kf_slot_frame, self._obs_counts = kf_count, kf_slots, obs
         # The event frame's pose as it was (BA may have poisoned it); a later
@@ -676,6 +817,12 @@ class NiceSLAM:
                 self.scene_bound if payload["scene_bound"] is None
                 else payload["scene_bound"],
             )
+        # A snapshot keeps its grids' Z padding (and the bounds that go with
+        # it): it restores at any map extent, re-padded here when attached.
+        if self._runtime is not None:
+            self._runtime.reattach_grids(self)
+        self._fit_obs_counts()
+        self._track_snap = None
         self.est_c2w = payload["est_c2w"]
         self.gt_c2w = payload["gt_c2w"]
         self._kf_count = int(self.state.keyframes.count)
@@ -691,6 +838,14 @@ class NiceSLAM:
         if len(gts) == len(self.est_c2w) and len(gts) > 1:
             out["ate_rmse"] = ate_rmse(self.est_c2w, gts)
         return out
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
 
 
 def _detach_tree(tree):

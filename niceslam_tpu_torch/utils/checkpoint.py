@@ -3,7 +3,12 @@
 The payload has the JAX package's keys (``niceslam_tpu/utils/checkpoint.py``):
 ``grids``, ``decoders``, ``keyframes`` (with ``count``), ``version``,
 ``est_c2w``, ``gt_c2w`` (NaN where a frame has no ground truth),
-``frame_idx``, ``bounds`` and ``scene_bound``. Everything in it is a tensor,
+``frame_idx``, ``bounds`` and ``scene_bound``. The grids are saved as the
+system holds them: Z-padded for the map axis when a multi-rank runtime is
+attached (``parallel/runtime.py``), with the extended bounds that go with
+the padding, so a snapshot written at one ``parallel.map`` restores at
+another (``NiceSLAM.restore`` pads it again when attached), as in the JAX
+package. Everything in it is a tensor,
 a number or a container of them, so :func:`load_checkpoint` reads it with
 ``weights_only=True``. The generator states are not saved, as in the JAX
 package: a resumed run draws other pixels than an uninterrupted one.

@@ -17,6 +17,7 @@ from niceslam_tpu_torch.io.datasets.base import Frame
 from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
 from niceslam_tpu_torch.io.prefetch import Prefetcher
 from niceslam_tpu_torch.models.decoders import tree_leaves
+from niceslam_tpu_torch.parallel.runtime import setup_runtime
 from niceslam_tpu_torch.slam.system import NiceSLAM
 from niceslam_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -49,13 +50,15 @@ def test_unknown_config_key_raises():
 
 
 def test_what_one_device_cannot_run_is_refused():
-    """A non-default ``parallel`` block raises, naming the slice that brings
-    it; a dataset without a reader raises, naming the readers there are."""
+    """A ``parallel`` block whose mesh needs more ranks than one process
+    raises in the runtime (``NiceSLAM`` itself takes any block); a dataset
+    without a reader raises, naming the readers there are."""
     cfg = dataclasses.replace(tiny_config(), parallel=load_config(
         os.path.join(_ROOT, "configs", "apartment_multihost.yaml"),
         overrides={"parallel.map": 2}).parallel)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        NiceSLAM(cfg, reader=SyntheticBoxReader(cfg, n_frames=2), device="cpu")
+    NiceSLAM(cfg, reader=SyntheticBoxReader(cfg, n_frames=2), device="cpu")
+    with pytest.raises(ValueError, match="does not fit 1 rank"):
+        setup_runtime(cfg, cpu=True)
     with pytest.raises(KeyError, match="unknown dataset 'kitti'.*'cofusion'"):
         NiceSLAM(dataclasses.replace(tiny_config(), dataset="kitti"), device="cpu")
 
