@@ -25,7 +25,11 @@ prints no result):
    scalar and looping variants); its bound counts the grid rows that the
    points touch. The grid gradients of K2 and K5 must
    equal their fixed-point model (``ops/fixed_point.py``) bit for bit, also
-   with the points in another order.
+   with the points in another order. K2 asked for the grid gradient alone,
+   as the pretraining launches it (phase 12), at its largest fine grid
+   (62x36x74x32) on one batch's 8,190 occupancy points: against its plain
+   version, its model (also permuted) and, with an all-zero cotangent,
+   exactly zero.
 3. card vs CPU, under each route: the port on the card (kernels) against
    the port on the CPU (plain versions) on a small world with injected
    pixels: a Gauss-Newton tracking solve and the mapping loss with its
@@ -105,6 +109,19 @@ prints no result):
    rank exits 0 (the command fails when the ranks' trajectories differ),
    no lost track.
 
+12. pretraining: one step of ``pretrain_decoders`` at the bench envelope
+   and full width (batch 4096, ``GridConfig()``, ``DecoderConfig()``), card
+   against CPU on one injected batch (loss within 1e-5 relative, every
+   gradient within 2e-5 of its leaf's largest entry), then the packed route
+   against the fused one on the card (K3-K5 launched); then
+   ``pretrain_decoders.main`` on the card cut to 3 scenes (one per
+   envelope) of 50 steps: each scene's first and last loss, its terms,
+   seconds per step beside a bound from ``utils/roofline.py`` and its peak
+   device memory; K1 and K2 launched as the step's calls predict (K1 11 a
+   step, K2 7, grid gradient only), K3-K5 not; no call inside a scene waits
+   for the stream (``set_sync_debug_mode("warn")``); every scene's loss
+   finite and falling; the written ``.npz`` loads and gives a finite field.
+
 ``--profile`` adds a phase after the fused main path: two more every_frame
 groups, the first timed, the second under ``torch.profiler``, for the
 card's busy share and the kernels that take its time (slow: the profiler's
@@ -132,11 +149,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM published peaks (dense, at the 700 W power limit): HBM3 rate and
-# fp32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 
 # Operations per point and channel, counted from the kernels' arithmetic:
 # 7 lerps of 3 flops; the derivative adds 19; the backward adds 8 weight
@@ -238,8 +250,14 @@ def device_ms(fn, reps: int = 50, rounds: int = 7) -> float:
 
 
 def bound_ms(nbytes: float, nops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = nops / FP32_FLOPS_PER_S
+    """The least time for ``nbytes`` moved and ``nops`` fp32 operations on
+    this card, from the published peaks of ``utils/roofline.py`` (which
+    raises for a card it holds no row of), and which of the two binds."""
+    from niceslam_tpu_torch.utils.roofline import device_peaks
+
+    peaks = device_peaks(f"cuda:{torch.cuda.current_device()}")
+    t_bytes = nbytes / (peaks.hbm_gbps * 1e9)
+    t_ops = nops / peaks.flops_f32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -575,6 +593,7 @@ def phase_kernels(cfg):
         row("trilerp_bwd", max_abs_err=err, ms=ms, plain_ms=plain, library_ms=libt,
             bound_ms=bms, bound_by=by)
         rows += packed_kernel_rows(pk, fp, case, with_table=uniform)
+    rows += k2_dgrid_only_rows(tk, fp)
     log("library_ms of corner_table: null, no single PyTorch call builds the "
         "packed table (the plain version is six concatenations)")
     for r in rows:
@@ -584,6 +603,73 @@ def phase_kernels(cfg):
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
             + (f"  [{r['extra']}]" if "extra" in r else ""))
     return rows
+
+
+def pretrain_scene_on_card(bi: int, seed: int = 0):
+    """A pretraining scene on envelope ``bi``, on the card: the grids and
+    bounds of scene ``bi`` of a run with ``seed`` and a geometry drawn from
+    a fresh ``default_rng(seed)``."""
+    from niceslam_tpu_torch import pretrain_decoders as pd
+    from niceslam_tpu_torch.grid.hierarchy import GridConfig, init_grids
+
+    grids, bounds, adj = init_grids(np.asarray(pd.BOUND_SET[bi], np.float32), GridConfig(),
+                                    gen=torch.Generator().manual_seed(seed + 100 + bi),
+                                    device="cuda")
+    geom = {k: torch.from_numpy(v).to("cuda")
+            for k, v in pd.scene_geometry(np.random.default_rng(seed), adj).items()}
+    return grids, bounds, geom
+
+
+def k2_dgrid_only_rows(tk, fp):
+    """K2 asked for the grid gradient alone, as the pretraining's backward
+    launches it (the points are constants), at the pretraining's largest
+    fine grid (the third envelope) on one batch's occupancy points: against
+    its plain version and bit for bit against the fixed-point model, also
+    with the points permuted; an all-zero cotangent (what the color stage
+    sends to the fine and middle samples) must give exactly zero."""
+    from niceslam_tpu_torch import pretrain_decoders as pd
+    from niceslam_tpu_torch.ops.trilinear import voxel_coords
+
+    grids, bounds, geom = pretrain_scene_on_card(2)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pts = pd.occupancy_points(pd.draw_batch(gen, geom, bounds, 4096))
+    grid = torch.randn(grids["fine"].shape, device="cuda", generator=gen) * 0.05
+    del grids
+    Z, Y, X, C = grid.shape
+    R = Z * Y * X
+    v = voxel_coords(pts, bounds["fine"], (Z, Y, X)).contiguous()
+    n = v.shape[0]
+    g = torch.randn((n, C), device="cuda", generator=gen)
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    name = f"fine {Z}x{Y}x{X} pretraining N={n} dgrid only"
+    log(f"kernel inputs [{name}]: {bucket_stats(grid, v)}")
+    dgrid, dv = tk.trilerp_bwd(grid, v, g, need_dv=False)
+    rdgrid, _ = tk.trilerp_bwd_plain(grid, v, g, need_dv=False)
+    pdgrid, _ = tk.trilerp_bwd(grid, v[perm].contiguous(), g[perm].contiguous(), need_dv=False)
+    zero, _ = tk.trilerp_bwd(grid, v, torch.zeros_like(g), need_dv=False)
+    model = fp.trilerp_bwd_fixed_point(grid, v, g)
+    torch.cuda.synchronize()
+    if dv is not None:
+        raise AssertionError(f"trilerp_bwd[{name}]: a dv was returned")
+    check_close(f"trilerp_bwd[{name}] dgrid", dgrid, rdgrid, 1e-5,
+                1e-5 * max(1.0, float(rdgrid.abs().max())))
+    check_model(f"trilerp_bwd[{name}] dgrid", dgrid, model)
+    check_order_independent(f"trilerp_bwd[{name}] dgrid", pdgrid, dgrid)
+    if int(torch.count_nonzero(zero)) != 0:
+        raise AssertionError(f"trilerp_bwd[{name}]: a zero cotangent gave "
+                             f"{int(torch.count_nonzero(zero))} non-zero entries")
+    log(f"kernel trilerp_bwd[{name}]: an all-zero cotangent gives exactly zero")
+    vol, nrm = grid_sample_inputs(grid, v)
+    lib_gout = g.t().reshape(1, C, n, 1, 1).contiguous()
+    bms, by = bound_ms(4 * (3 * n + n * C + R * C), n * C * (BWD_OPS - 6))
+    return [dict(
+        name="trilerp_bwd", case=name, points="pretraining",
+        max_abs_err=max_err(dgrid, rdgrid),
+        ms=device_ms(lambda: tk.trilerp_bwd(grid, v, g, need_dv=False)),
+        plain_ms=device_ms(lambda: tk.trilerp_bwd_plain(grid, v, g, need_dv=False), reps=10),
+        library_ms=device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+            lib_gout, vol, nrm, 0, 1, True, [True, False])),
+        bound_ms=bms, bound_by=by)]
 
 
 def packed_kernel_rows(pk, fp, case, with_table=True):
@@ -829,7 +915,7 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
                                  f"{launches['trilerp_fwd']}")
         log(f"{tag}: K1 launches by variant, derivative output and N: " + ", ".join(
             f"{var} deriv={int(d)} N={n}: {c}" for (var, d, n), c in sorted(tally.items())))
-        log(f"{tag}: K2 launches by need_dgrid: {k2_tally()}")
+        log(f"{tag}: K2 launches by the gradients asked for: {k2_tally()}")
     log(f"{tag}: peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated)")
     check_route_launches(f"main path {tag}", route, launches)
     res = slam.result()
@@ -1016,10 +1102,11 @@ def phase_mesher(slam, cfg, resolution: int = 128):
 
 # ------------------------------------------------------------ phases 6-9
 def k2_tally() -> dict:
-    """K2's launches by ``need_dgrid`` since the counts were last cleared."""
+    """K2's launches by the gradients asked for (``dgrid``, ``dv``) since
+    the counts were last cleared."""
     from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY
 
-    return {f"need_dgrid={d}": c for d, c in sorted(BWD_TALLY.items())}
+    return {f"dgrid={int(d)} dv={int(v)}": c for (d, v), c in sorted(BWD_TALLY.items())}
 
 
 def clear_tallies():
@@ -1114,14 +1201,14 @@ def phase_adam(run: dict, cfg):
         tk.trilerp_bwd = bwd
     launches, tally = all_launches(), k2_tally()
     check_route_launches("adam solve", "fused", launches)
-    if set(tally) != {"need_dgrid=False"}:
+    if set(tally) != {"dgrid=0 dv=1"}:
         raise AssertionError(f"adam solve: K2 asked for a grid gradient: {tally}")
     t0 = time.perf_counter()
     solve("cuda")
     torch.cuda.synchronize()
     gn = [e["dt_track"] for e in slam.events
           if e["event"] == "frame" and e["frame"] > 0 and e["dt_map"] == 0.0]
-    log(f"adam: launches {launches}; K2 by need_dgrid {tally}; one frame's solve again: "
+    log(f"adam: launches {launches}; K2 by gradients {tally}; one frame's solve again: "
         f"{time.perf_counter() - t0:.3f} s (GN tracking of the strict run's track-only "
         f"frames: {gn} s)")
     t0 = time.perf_counter()
@@ -1255,7 +1342,7 @@ def phase_async(cfg, strict: dict):
     log(f"{tag}: peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated), "
         f"{(peak - start) / 2**20:.1f} MiB over the start (strict: "
         f"{(strict['peak_bytes'] - strict['start_bytes']) / 2**20:.1f}); "
-        f"launches {launches}; K2 by need_dgrid {k2_tally()}")
+        f"launches {launches}; K2 by gradients {k2_tally()}")
     if not np.array_equal(poses, strict["poses"]):
         raise AssertionError(f"{tag}: the trajectory differs from the strict run's "
                              f"(max abs diff {np.abs(poses - strict['poses']).max():.3e})")
@@ -1393,7 +1480,7 @@ def phase_cli(frames: int = 8):
             lines = out.getvalue().strip().splitlines()
             last = json.loads(lines[-1])
             log(f"cli [{tag}]: rc {rc} in {dt:.1f} s; {lines[-2]}; last line {lines[-1]}; "
-                f"launches {launches}; K2 by need_dgrid {k2_tally()}")
+                f"launches {launches}; K2 by gradients {k2_tally()}")
             check_route_launches(f"cli [{tag}]", "fused", launches)
             traj = np.load(os.path.join(tmp, f"{tag}.npy"))
             nv, nf = ply_counts(os.path.join(tmp, f"{tag}.ply"))
@@ -2206,6 +2293,235 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                                  "saved one")
 
 
+# ---------------------------------------------------------------- phase 12
+PRETRAIN_SCENES, PRETRAIN_STEPS, PRETRAIN_BATCH = 3, 50, 4096
+
+
+def pretrain_counts(batch: int) -> dict:
+    """The point counts of one pretraining step at ``batch``: occupancy,
+    color, coarse and calibration points."""
+    from niceslam_tpu_torch import pretrain_decoders as pd
+
+    n_occ = batch + batch // 2 + pd.N_OBS * max(batch // (2 * pd.N_OBS), 1)
+    return {"occ": n_occ, "col": n_occ - batch, "coarse": batch,
+            "cal": len(range(0, n_occ, max(n_occ // 1024, 1)))}
+
+
+def pretrain_step_calls(batch: int):
+    """The step's ``nice_forward`` calls as ``(points, stage, live grids)``:
+    the middle, fine, coarse and color stages on the live grids, then the
+    calibration's middle, fine and coarse stages on zero grids."""
+    n = pretrain_counts(batch)
+    return ([(n["occ"], "middle", True), (n["occ"], "fine", True),
+             (n["coarse"], "coarse", True), (n["col"], "color", True)]
+            + [(n["cal"], s, False) for s in ("middle", "fine", "coarse")])
+
+
+def pretrain_expected_launches(batch: int, steps: int):
+    """K1's launches by ``(variant, deriv, N)`` and K2's by ``(dgrid, dv)``
+    over ``steps`` steps: one K1 per level that a call samples (every one
+    at C = 32, vector), one K2 (grid gradient only) per live-grid sample."""
+    from collections import Counter
+
+    from niceslam_tpu_torch.utils.roofline import STAGE_LEVELS
+
+    k1, k2 = Counter(), Counter()
+    for n, stage, live in pretrain_step_calls(batch):
+        k1["vector", False, n] += steps * len(STAGE_LEVELS[stage])
+        if live:
+            k2[True, False] += steps * len(STAGE_LEVELS[stage])
+    return k1, k2
+
+
+def pretrain_step_bound_ms(batch: int, grid_shapes: dict) -> float:
+    """A bound on one pretraining step from ``utils/roofline.py``: per call,
+    per level sampled, ``trilinear_cost`` (with its backward on the live
+    grids) and ``mlp_cost`` with its backward (the decoders always train),
+    plus the Adam step over the grids (read parameter, gradient and two
+    moments, write parameter and moments), over this card's peaks."""
+    from niceslam_tpu_torch.utils.roofline import (
+        STAGE_LEVELS, device_peaks, mlp_cost, sol_ms, trilinear_cost)
+
+    c_dim = grid_shapes["fine"][-1]
+    grid_bytes = {lvl: 4 * int(np.prod(s)) for lvl, s in grid_shapes.items()}
+    flops = nbytes = 0.0
+    for n, stage, live in pretrain_step_calls(batch):
+        for lvl in STAGE_LEVELS[stage]:
+            t = trilinear_cost(n, c_dim, grid_bytes[lvl], backward=live)
+            m = mlp_cost(n, c_in=2 * c_dim if lvl == "fine" else c_dim,
+                         color=lvl == "color", backward=True)
+            flops += t["flops"] + m["flops"]
+            nbytes += t["bytes"] + m["bytes"]
+    nbytes += 7 * sum(grid_bytes.values())
+    return sol_ms(flops, nbytes, device_peaks(f"cuda:{torch.cuda.current_device()}"))
+
+
+def pretrain_step_parity():
+    """One pretraining step at the bench envelope, card against CPU on the
+    same injected batch and parameters (loss 1e-5 relative, every gradient
+    2e-5 of its leaf's largest entry), then the packed route against the
+    fused one on the card at the same tolerance, each route launching its
+    own kernels only."""
+    from niceslam_tpu_torch import pretrain_decoders as pd
+    from niceslam_tpu_torch.grid.hierarchy import GridConfig, init_grids
+    from niceslam_tpu_torch.models.decoders import init_decoders, tree_map
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+
+    grids, bounds, adj = init_grids(np.asarray(pd.BOUND_SET[1], np.float32), GridConfig(),
+                                    gen=torch.Generator().manual_seed(101), device="cpu")
+    dec = init_decoders(gen=torch.Generator().manual_seed(1), device="cpu")
+    geom = pd.scene_geometry(np.random.default_rng(0), adj)
+    cfg = pd.PretrainConfig()
+    on = lambda tree, dev: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+    batch = on(pd.draw_batch(torch.Generator(device="cuda").manual_seed(3),
+                             {k: torch.from_numpy(v).cuda() for k, v in geom.items()},
+                             on(bounds, "cuda"), PRETRAIN_BATCH), "cpu")
+
+    def step(dev):
+        total, aux, grads = pd.loss_and_grads(
+            pd.trainable(on(dec, dev)), pd.trainable(on(grids, dev)), on(batch, dev),
+            {k: torch.from_numpy(v).to(dev) for k, v in geom.items()}, on(bounds, dev), cfg)
+        return (float(total.detach()), {k: float(v.detach()) for k, v in aux.items()},
+                [None if g is None else g.cpu() for g in grads])
+
+    def compare(what, got, want):
+        (loss, aux, grads), (wloss, waux, wgrads) = got, want
+        rel = abs(loss - wloss) / abs(wloss)
+        worst = 0.0
+        for g, w in zip(grads, wgrads):
+            if (g is None) != (w is None):
+                raise AssertionError(f"pretrain {what}: a gradient is missing on one side")
+            if w is not None:
+                worst = max(worst, max_err(g, w) / max(float(w.abs().max()), 1e-30))
+        log(f"pretrain {what}: loss {loss:.7f} against {wloss:.7f} (rel err {rel:.3e}), "
+            f"aux {({k: round(v, 6) for k, v in aux.items()})}, worst gradient err "
+            f"{worst:.3e} of its leaf's largest, over {sum(w is not None for w in wgrads)} "
+            f"leaves")
+        if not (rel <= 1e-5 and worst <= 2e-5):
+            raise AssertionError(f"pretrain {what}: loss rel err {rel:.3e} (1e-5) or a "
+                                 f"gradient err {worst:.3e} (2e-5)")
+
+    results = {}
+    for route in ROUTE_KERNELS:
+        with sampler_route(route):
+            clear_tallies()
+            results[route] = step("cuda")
+            torch.cuda.synchronize()
+            launches = all_launches()
+        check_route_launches(f"pretrain step [{route}]", route, launches)
+        log(f"pretrain step [{route}] launches: {launches}"
+            + (f"; K2 by gradients {k2_tally()}" if route == "fused" else ""))
+    compare("card vs CPU [fused]", results["fused"], step("cpu"))
+    compare("packed vs fused on the card", results["packed"], results["fused"])
+
+
+def pretrain_sync_recorder(sites, in_scene):
+    """A ``warnings.showwarning`` that counts the calls which waited for the
+    stream by call site, and apart those made inside ``train_scene``."""
+    import traceback
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            site = sync_site(filename, lineno)
+            sites[site] += 1
+            if any(fr.name == "train_scene" for fr in traceback.extract_stack()):
+                in_scene[site] += 1
+    return record
+
+
+def phase_pretrain():
+    """Phase 12: decoder pretraining on the card (see the module docstring)."""
+    import contextlib
+    import io
+    import warnings
+    from collections import Counter
+
+    from niceslam_tpu_torch import pretrain_decoders as pd
+    from niceslam_tpu_torch.grid.hierarchy import GridConfig, adjust_bound, grid_shape
+    from niceslam_tpu_torch.models.decoders import init_decoders, nice_forward
+    from niceslam_tpu_torch.models.pretrained import load_decoders_npz
+    from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY, FWD_TALLY
+
+    pretrain_step_parity()
+    d = pd.PretrainConfig()
+    log(f"cut: pretraining scenes {d.scenes} -> {PRETRAIN_SCENES} (one per envelope), steps "
+        f"{d.steps} -> {PRETRAIN_STEPS}; batch {PRETRAIN_BATCH}, GridConfig() and "
+        f"DecoderConfig() defaults")
+    gcfg = GridConfig()
+    shapes = []
+    for b in pd.BOUND_SET:
+        adj = adjust_bound(np.asarray(b, np.float32), gcfg.bound_divisable)
+        shapes.append({lvl: grid_shape(adj, gcfg.level_len(lvl),
+                                       gcfg.coarse_bound_enlarge if lvl == "coarse" else 1.0)
+                       + (gcfg.c_dim,) for lvl in ("coarse", "middle", "fine", "color")})
+    sites, in_scene = Counter(), Counter()
+    out, err = io.StringIO(), io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pretrained.npz")
+        argv = ["--scenes", str(PRETRAIN_SCENES), "--steps", str(PRETRAIN_STEPS),
+                "--batch", str(PRETRAIN_BATCH), "--out", path]
+        torch.cuda.synchronize()
+        start_peak("pretrain")  # main reads the peak of each scene
+        clear_tallies()
+        showwarning = warnings.showwarning
+        t0 = time.perf_counter()
+        try:
+            with (warnings.catch_warnings(), contextlib.redirect_stdout(out),
+                  contextlib.redirect_stderr(err)):
+                warnings.simplefilter("always")
+                warnings.showwarning = pretrain_sync_recorder(sites, in_scene)
+                torch.cuda.set_sync_debug_mode("warn")
+                rc = pd.main(argv)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = showwarning
+        wall = time.perf_counter() - t0
+        launches, k1, k2 = all_launches(), Counter(FWD_TALLY), Counter(BWD_TALLY)
+        for line in err.getvalue().splitlines():
+            log(f"pretrain stderr: {line}")
+        last = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"pretrain: main({' '.join(argv[:-2])}) rc {rc} in {wall:.2f} s; last line {last}")
+        dec = load_decoders_npz(path, init_decoders(device="cuda"))
+    recs = [json.loads(line.split(") ", 1)[1]) for line in err.getvalue().splitlines()
+            if line.startswith("scene ")]
+    steps = PRETRAIN_SCENES * PRETRAIN_STEPS
+    want_k1, want_k2 = pretrain_expected_launches(PRETRAIN_BATCH, steps)
+    log(f"pretrain: launches {launches}; K1 per step by (variant, deriv, N) "
+        f"{ {k: c / steps for k, c in sorted(k1.items())} }; K2 per step by (dgrid, dv) "
+        f"{ {k: c / steps for k, c in sorted(k2.items())} }")
+    log(f"pretrain: calls that waited for the stream: {sum(sites.values())} "
+        f"{dict(sites.most_common())}; inside train_scene: {dict(in_scene)}")
+    for r, sh in zip(recs, shapes):
+        bms = pretrain_step_bound_ms(PRETRAIN_BATCH, sh)
+        log(f"pretrain scene {r['scene']} (envelope {r['bound']}, fine {sh['fine']}): loss "
+            f"{r['first']:.5f} -> {r['last']:.5f}, aux {({k: round(v, 5) for k, v in r['aux'].items()})}, "
+            f"{1e3 * r['s_per_step']:.3f} ms per step (synchronised at the scene's end) "
+            f"against a roofline bound of {bms:.4f} ms, peak {r['peak_mib']:.1f} MiB")
+    check_route_launches("pretrain", "fused", launches)
+    if rc != 0 or len(recs) != PRETRAIN_SCENES or set(last) != {
+            "scenes", "steps_per_scene", "final_losses", "wall_s", "out"}:
+        raise AssertionError(f"pretrain: rc {rc}, {len(recs)} scene lines, last line {last}")
+    if k1 != want_k1 or k2 != want_k2:
+        raise AssertionError(f"pretrain: launches K1 {dict(k1)} (want {dict(want_k1)}), K2 "
+                             f"{dict(k2)} (want {dict(want_k2)})")
+    if in_scene:
+        raise AssertionError(f"pretrain: calls inside a scene waited for the stream: "
+                             f"{dict(in_scene)}")
+    if not all(np.isfinite([r["first"], r["last"], *r["aux"].values()]).all() for r in recs):
+        raise AssertionError(f"pretrain: a non-finite loss: {recs}")
+    if not all(r["last"] < r["first"] for r in recs):
+        raise AssertionError(f"pretrain: a scene's loss did not fall: {recs}")
+    grids, bounds, geom = pretrain_scene_on_card(1)
+    pts = pd.occupancy_points(pd.draw_batch(torch.Generator(device="cuda").manual_seed(9),
+                                            geom, bounds, 1024))
+    raw = nice_forward(dec, grids, pts, bounds, "color")
+    if not (raw.shape == (pts.shape[0], 4) and bool(torch.isfinite(raw).all())):
+        raise AssertionError("pretrain: the written decoders give a non-finite field")
+    log(f"pretrain: the written .npz loads into init_decoders; nice_forward(color) on "
+        f"{pts.shape[0]} points finite, occupancy in [{float(raw[:, 3].min()):.3f}, "
+        f"{float(raw[:, 3].max()):.3f}]")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8)
@@ -2271,6 +2587,9 @@ def main():
     t0 = time.perf_counter()
     phase_multi(cfg, runs["fused"], fused_digest)
     log(f"multi phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_pretrain()
+    log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]
     log(f"ATE per seed (cm), fused route: {[round(a, 4) for a in ates]}, "

@@ -1,0 +1,6 @@
+from .decoders import (  # noqa: F401
+    DecoderConfig,
+    init_decoders,
+    nice_forward,
+    decoder_param_labels,
+)

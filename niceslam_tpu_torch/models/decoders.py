@@ -176,3 +176,9 @@ def nice_forward(
     else:
         raise ValueError(f"unknown stage {stage!r}")
     return torch.cat([zeros3, occ[:, None]], dim=-1)
+
+
+def decoder_param_labels(params: Params) -> Params:
+    """Every decoder leaf labelled with its level name (the JAX package's
+    labels for ``optax.multi_transform``)."""
+    return {level: tree_map(lambda _, lvl=level: lvl, sub) for level, sub in params.items()}

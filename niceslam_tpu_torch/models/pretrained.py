@@ -3,7 +3,8 @@
 ``.npz`` (``models/pretrained_decoders.npz``) holds one array per decoder
 leaf under keys like ``middle/linears/0/w`` (weights stored ``[in, out]``),
 81 keys for the four decoders. Loading it is strict: every leaf of the model
-must be present with the same shape.
+must be present with the same shape. :func:`save_decoders_npz` writes it
+(``pretrain_decoders.py`` makes decoders in this format).
 
 ``.pt`` is an upstream NICE-SLAM ``torch.save`` of a decoder state dict
 (optionally wrapped as ``{"model": ...}``), mapped as the JAX package's
@@ -44,6 +45,16 @@ def _rebuild(tree, values, prefix=""):
             _rebuild(v, values, f"{prefix}{i}/") for i, v in enumerate(tree)
         )
     return values[prefix[:-1]]
+
+
+def save_decoders_npz(path: str, params) -> None:
+    """Write a decoder tree as the flat ``.npz`` that :func:`load_decoders_npz`
+    and the JAX package's loader read: one float32 array per leaf, keyed by
+    its slash-joined path, read back from whatever device holds it."""
+    np.savez(path, **{
+        key: np.asarray(leaf.detach().cpu().numpy(), np.float32)
+        for key, leaf in _flatten_with_keys(params)
+    })
 
 
 def load_decoders_npz(path: str, params):

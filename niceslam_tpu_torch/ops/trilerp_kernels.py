@@ -26,7 +26,7 @@ bound with ``ctypes``. :func:`build` and :func:`load_library` serve every
 ``csrc/*.cu`` of the package (and the ``csrc/*.cuh`` they include).
 ``LAUNCHES`` counts each kernel's launches; ``FWD_TALLY`` splits K1's by
 the variant launched, derivative output and number of points, and
-``BWD_TALLY`` K2's by whether the grid gradient was asked for.
+``BWD_TALLY`` K2's by which of the grid and point gradients were asked for.
 """
 from __future__ import annotations
 
@@ -44,8 +44,10 @@ import torch
 LAUNCHES = {"trilerp_fwd": 0, "trilerp_bwd": 0}
 # K1's launches by (variant, deriv, N); their sum is LAUNCHES["trilerp_fwd"].
 FWD_TALLY: Counter = Counter()
-# K2's launches by need_dgrid (False: the per-point dv pass only, as when
-# the grid is not differentiated); their sum is LAUNCHES["trilerp_bwd"].
+# K2's launches by (need_dgrid, need_dv): (False, True) is the per-point dv
+# pass alone (the grid is not differentiated), (True, False) the grid
+# gradient alone (the points are constants); their sum is
+# LAUNCHES["trilerp_bwd"].
 BWD_TALLY: Counter = Counter()
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -318,7 +320,7 @@ def trilerp_bwd(
         )
     _launch_check(rc, "trilerp_bwd")
     LAUNCHES["trilerp_bwd"] += 1
-    BWD_TALLY[need_dgrid] += 1
+    BWD_TALLY[need_dgrid, need_dv] += 1
     return dgrid, dv
 
 

@@ -31,7 +31,7 @@ from ..config.schema import StageLR
 from ..core.pose import camera_from_tensor, to_homogeneous
 from ..core.rays import Intrinsics, pixel_dirs
 from ..core.transfer import to_device
-from ..models.decoders import tree_leaves
+from ..models.decoders import tree_leaves, tree_map
 from ..render.renderer import RenderConfig, render_rays
 
 STAGE_ORDER = ("coarse", "middle", "fine", "color")
@@ -53,6 +53,9 @@ class MapOptConfig(NamedTuple):
     lr_factor: float = 1.0
     train_all_decoders: bool = False
     decoders_lr_fallback: float = 0.005
+    tv_weight: float = 0.0  # ProgConfig.tv_weight, for optimize_window
+    fs_weight: float = 0.0  # ProgConfig.fs_weight, for optimize_window
+    fs_band: float = 0.05
 
 
 class ProgConfig(NamedTuple):
@@ -134,6 +137,19 @@ def dec_train_table(stage_lr_fn, cfg: MapOptConfig):
     """[stage][level] decoder trainability from the full stage-LR table."""
     return tuple(
         tuple(_decoder_lr(lvl, stage_lr_fn(stage), cfg) != 0.0 for lvl in LEVEL_ORDER)
+        for stage in STAGE_ORDER
+    )
+
+
+def dec_train_from_plan(plan: StagePlan, cfg: MapOptConfig):
+    """Like :func:`dec_train_table` but from one pass's plan: the rows of
+    stages absent from the plan are all False."""
+    by_stage = {stage: lrs for stage, _, lrs in plan}
+    return tuple(
+        tuple(
+            stage in by_stage and _decoder_lr(lvl, by_stage[stage], cfg) != 0.0
+            for lvl in LEVEL_ORDER
+        )
         for stage in STAGE_ORDER
     )
 
@@ -467,3 +483,53 @@ def run_schedule(
         )
         losses.append(loss.detach())
     return torch.stack(losses)
+
+
+def optimize_window(
+    grids,
+    decoders,
+    cam_tensors,  # [F, 7]
+    grid_masks,
+    bounds,
+    scene_bound,
+    intr: Intrinsics,
+    colors,
+    depths,
+    frame_valid: np.ndarray,
+    cam_fixed: np.ndarray,
+    gen: Optional[torch.Generator],
+    plan: StagePlan,
+    cfg: MapOptConfig,
+    rcfg: RenderConfig,
+    n_pixels: int,
+    pixels=None,
+):
+    """The whole staged mapping optimization of one window in one call.
+
+    Returns ``(grids, decoders, cam_tensors, losses)`` (detached; the inputs
+    are not modified), ``losses`` the loss of every iteration across the
+    stages. The rays come from ``gen``, or from ``pixels`` as in
+    :func:`run_schedule`. ``NiceSLAM`` (``slam/system.py``) calls
+    :func:`run_schedule` itself, in chunks; this expands the plan at once.
+    """
+    sched = schedule_arrays(plan, cfg)
+    pcfg = ProgConfig(
+        n_pixels=n_pixels,
+        w_color_loss=cfg.w_color_loss,
+        frustum=cfg.frustum_feature_selection,
+        ba=cfg.BA,
+        dec_train=dec_train_from_plan(plan, cfg),
+        tv_weight=cfg.tv_weight,
+        fs_weight=cfg.fs_weight,
+        fs_band=cfg.fs_band,
+    )
+    pp = make_pass_params(grids, decoders, cam_tensors, pcfg)
+    losses = run_schedule(
+        pp, init_opt_state(pp), sched, grid_masks, bounds, scene_bound, intr,
+        colors, depths, frame_valid, cam_fixed, pcfg, rcfg, gen=gen, pixels=pixels,
+    )
+    out = tree_map(lambda t: t.detach(), pp.params)
+    return out["grids"], out["decoders"], out["cams"], losses
+
+
+optimize_map = optimize_window

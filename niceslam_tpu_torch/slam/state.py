@@ -5,13 +5,18 @@ The keyframe database is a fixed-capacity ring buffer of device tensors
 decoders and keyframes with a version that the driver bumps on every
 mapping event. :func:`snapshot_keyframes` and :func:`restore_keyframes`
 take one event's writes back (the async sync mode's rollback).
+:func:`init_state` builds a fresh map.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
+
+from ..grid.hierarchy import GridConfig, init_grids
+from ..models.decoders import DecoderConfig, init_decoders
 
 
 @dataclass
@@ -113,3 +118,22 @@ class MapState:
     decoders: Dict
     keyframes: KeyframeDB
     version: int = 0
+
+
+def init_state(
+    bound: np.ndarray,
+    H: int,
+    W: int,
+    grid_cfg: GridConfig = GridConfig(),
+    dec_cfg: DecoderConfig = DecoderConfig(),
+    kf_capacity: int = 128,
+    gen: Optional[torch.Generator] = None,
+    device="cuda",
+):
+    """A fresh map: grids, then decoders, from ``gen``'s draws (a CPU
+    generator), and an empty keyframe DB. Returns ``(MapState, bounds,
+    adjusted_bound)``."""
+    grids, bounds, bound_adj = init_grids(bound, grid_cfg, gen=gen, device=device)
+    decoders = init_decoders(dec_cfg, gen=gen, device=device)
+    state = MapState(grids, decoders, init_keyframe_db(kf_capacity, H, W, device))
+    return state, bounds, bound_adj

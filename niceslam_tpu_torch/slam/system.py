@@ -64,10 +64,10 @@ from ..core.pose import (
 from ..core.rays import Intrinsics, draw_pixels
 from ..core.transfer import HostCopy, to_device
 from ..eval.ate import ate_rmse
-from ..grid.hierarchy import GridConfig, init_grids
+from ..grid.hierarchy import GridConfig
 from ..io.datasets.base import Frame, FrameReader, get_dataset
 from ..io.prefetch import Prefetcher
-from ..models.decoders import DecoderConfig, init_decoders
+from ..models.decoders import DecoderConfig
 from ..models.pretrained import load_pretrained_decoders
 from ..render.renderer import RenderConfig
 from ..utils.checkpoint import load_checkpoint
@@ -87,9 +87,8 @@ from .mapper import (
     run_schedule,
 )
 from .state import (
-    MapState,
     add_keyframe,
-    init_keyframe_db,
+    init_state,
     restore_keyframes,
     snapshot_keyframes,
 )
@@ -158,26 +157,18 @@ class NiceSLAM:
             c_dim=cfg.model.c_dim,
             coarse_bound_enlarge=cfg.model.coarse_bound_enlarge,
         )
-        grids, bounds, bound = init_grids(
-            np.asarray(cfg.bound, np.float32) * cfg.scale, grid_cfg,
-            gen=init_gen, device=self.device,
-        )
-        self._set_bounds(bounds, torch.as_tensor(bound, device=self.device))
         dec_cfg = DecoderConfig(
             c_dim=cfg.model.c_dim, hidden=cfg.model.hidden_size, coarse=cfg.coarse
         )
-        decoders = init_decoders(dec_cfg, gen=init_gen, device=self.device)
-        if cfg.pretrained_coarse or cfg.pretrained_middle_fine:
-            decoders = load_pretrained_decoders(
-                decoders, cfg.pretrained_coarse, cfg.pretrained_middle_fine
-            )
-        self.state = MapState(
-            grids=grids,
-            decoders=decoders,
-            keyframes=init_keyframe_db(
-                cfg.mapping.max_keyframes, self.intr.H, self.intr.W, self.device
-            ),
+        self.state, bounds, bound = init_state(
+            np.asarray(cfg.bound, np.float32) * cfg.scale, self.intr.H, self.intr.W,
+            grid_cfg, dec_cfg, cfg.mapping.max_keyframes, gen=init_gen, device=self.device,
         )
+        self._set_bounds(bounds, torch.as_tensor(bound, device=self.device))
+        if cfg.pretrained_coarse or cfg.pretrained_middle_fine:
+            self.state.decoders = load_pretrained_decoders(
+                self.state.decoders, cfg.pretrained_coarse, cfg.pretrained_middle_fine
+            )
         # Pretrained decoders stay frozen (fix_fine semantics); otherwise
         # mapping.decoder_train decides ('never' / 'init' / 'always').
         self.decoder_train = (
@@ -198,7 +189,7 @@ class NiceSLAM:
         self._obs_counts = (
             {
                 lvl: torch.zeros(g.shape[:3] + (1,), device=self.device)
-                for lvl, g in grids.items()
+                for lvl, g in self.state.grids.items()
             }
             if cfg.mapping.lock_after > 0
             else None

@@ -25,14 +25,18 @@ from niceslam_tpu.models.pretrained import load_decoders_npz as jload_npz
 from niceslam_tpu.render.renderer import RenderConfig as JRenderConfig
 from niceslam_tpu.slam import keyframes as jkf
 from niceslam_tpu.slam import mapper as jmapper
+from niceslam_tpu.slam.state import init_state as jinit_state
 from niceslam_tpu.slam.tracker import TrackConfig as JTrackConfig
 from niceslam_tpu.slam.tracker import _track_frame_gn as jtrack_gn
 from niceslam_tpu_torch import convert
 from niceslam_tpu_torch.config.schema import MappingConfig
 from niceslam_tpu_torch.core.rays import Intrinsics
+from niceslam_tpu_torch.models.decoders import tree_leaves
+from niceslam_tpu_torch.models.pretrained import _flatten_with_keys
 from niceslam_tpu_torch.render.renderer import RenderConfig
 from niceslam_tpu_torch.slam import keyframes as kf
 from niceslam_tpu_torch.slam import mapper
+from niceslam_tpu_torch.slam.state import init_state
 from niceslam_tpu_torch.slam.tracker import TrackConfig, gn_prior, track_frame
 
 torch.set_num_threads(1)
@@ -241,6 +245,9 @@ def test_stage_plan_and_schedule_match_jax():
             for a, b in zip(c, jc):
                 np.testing.assert_array_equal(a, np.asarray(b))
         assert mapper.dec_train_table(m.stage_lr, cfg) == jmapper.dec_train_table(m.stage_lr, jcfg)
+        for c in (cfg, mapper.MapOptConfig(train_all_decoders=True, fix_color=True)):
+            assert mapper.dec_train_from_plan(plan, c) == jmapper.dec_train_from_plan(
+                jplan, jmapper.MapOptConfig(*c))
 
 
 def test_frustum_masks_and_overlap_match_jax(world):
@@ -274,3 +281,88 @@ def test_frustum_masks_and_overlap_match_jax(world):
         torch.from_numpy(frames[1][0]), torch.from_numpy(c2ws), i, j,
     )
     np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-3)
+
+
+def test_optimize_window_equals_a_run_schedule_chain(world):
+    """``optimize_window`` (one call, the plan's own decoder table) equals
+    the pass chained by hand through ``run_schedule`` in chunks of 2 rows,
+    bit for bit, on injected pixels, with BA, TV and free-space terms; its
+    inputs are left as they were."""
+    _, (dec, grids, bounds, sb), _, _ = world
+    colors, depths, cams, valid, fixed = (torch.from_numpy(np.array(a)) if a.dtype != bool
+                                          else a for a in _mapping_inputs(world))
+    plan = mapper.build_stage_plan(5, 0.4, 0.6, MappingConfig().stage_lr)
+    cfg = mapper.MapOptConfig(BA=True, train_all_decoders=True, tv_weight=0.1, fs_weight=1.0)
+    n = 64
+    rng = np.random.default_rng(2)
+    pixels = {it: tuple(torch.from_numpy(rng.integers(0, hi, n))
+                        for hi in (3, JINTR.W, JINTR.H)) for it in range(5)}
+    masks = {lvl: torch.from_numpy((rng.uniform(size=g.shape[:3] + (1,)) > 0.2)
+                                   .astype(np.float32)) for lvl, g in grids.items()}
+    before = [t.clone() for t in [*grids.values(), cams]]
+    g1, d1, c1, l1 = mapper.optimize_map(
+        grids, dec, cams, masks, bounds, sb, INTR, colors, depths, valid, fixed, None,
+        plan, cfg, RCFG, n, pixels=pixels)
+    assert all(torch.equal(a, b) for a, b in zip(before, [*grids.values(), cams]))
+
+    pcfg = mapper.ProgConfig(n_pixels=n, w_color_loss=cfg.w_color_loss, frustum=True,
+                             dec_train=mapper.dec_train_from_plan(plan, cfg), ba=True,
+                             tv_weight=0.1, fs_weight=1.0)
+    pp = mapper.make_pass_params(grids, dec, cams, pcfg)
+    opt = mapper.init_opt_state(pp)
+    chunks, reals = mapper.chunked_schedule(plan, cfg, 2)
+    l2 = torch.cat([mapper.run_schedule(pp, opt, c, masks, bounds, sb, INTR, colors, depths,
+                                        valid, fixed, pcfg, RCFG, pixels=pixels)[:r]
+                    for c, r in zip(chunks, reals)])
+    assert l1.shape == (5,) and bool(torch.isfinite(l1).all())
+    assert torch.equal(l1, l2)
+    assert torch.equal(c1, pp.params["cams"]) and not c1.requires_grad
+    for lvl in grids:
+        assert torch.equal(g1[lvl], pp.params["grids"][lvl]), lvl
+    for a, b in zip(tree_leaves(d1), tree_leaves(pp.params["decoders"])):
+        assert torch.equal(a, b)
+    assert not torch.equal(g1["fine"], grids["fine"])  # the pass moved the map
+
+
+def test_init_state_matches_jax_shapes():
+    jst, jbounds, jadj = jinit_state(jax.random.PRNGKey(0), BOUND, 48, 64, kf_capacity=6)
+    st, bounds, adj = init_state(BOUND, 48, 64, kf_capacity=6,
+                                 gen=torch.Generator().manual_seed(0), device="cpu")
+    np.testing.assert_array_equal(adj, np.asarray(jadj))
+    assert set(st.grids) == set(jst.grids)
+    for lvl, g in jst.grids.items():
+        assert tuple(st.grids[lvl].shape) == g.shape
+        np.testing.assert_array_equal(bounds[lvl].numpy(), np.asarray(jbounds[lvl]))
+    for key, t in _flatten_with_keys(st.decoders):
+        want = jst.decoders
+        for part in key.split("/"):
+            want = want[int(part) if isinstance(want, list) else part]
+        assert tuple(t.shape) == want.shape, key
+    for f in ("colors", "depths", "est_c2w", "gt_c2w", "frame_idx"):
+        assert tuple(getattr(st.keyframes, f).shape) == getattr(jst.keyframes, f).shape, f
+    assert st.keyframes.count == int(jst.keyframes.count) == 0
+    assert st.version == int(jst.version) == 0
+
+
+def test_public_exports_match_jax():
+    """Every public name of the JAX ``slam`` and ``models`` packages is
+    exported by the port's, and the decoder labels agree."""
+    import inspect
+
+    import niceslam_tpu.models as jmodels
+    import niceslam_tpu.slam as jslam
+    import niceslam_tpu_torch.models as models
+    import niceslam_tpu_torch.slam as slam
+
+    for jpkg, pkg in ((jslam, slam), (jmodels, models)):
+        names = {n for n, v in vars(jpkg).items()
+                 if not n.startswith("_") and not inspect.ismodule(v)}
+        assert names and names <= set(vars(pkg)), names - set(vars(pkg))
+    jdec = jinit_decoders(jax.random.PRNGKey(0), JDecoderConfig())
+    want = jmodels.decoder_param_labels(jdec)
+    got = models.decoder_param_labels(models.init_decoders(device="cpu"))
+    for key, label in _flatten_with_keys(got):
+        w = want
+        for part in key.split("/"):
+            w = w[int(part) if isinstance(w, list) else part]
+        assert label == w == key.split("/")[0], key
