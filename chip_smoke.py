@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``niceslam_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--frames 8] [--iters-first 1500] [--profile] [--seeds 1]
-                          [--multi-only]
+                          [--multi-only | --pretrain-recipe]
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
@@ -128,6 +128,12 @@ card's busy share and the kernels that take its time (slow: the profiler's
 host side takes minutes to digest the ~10^5 kernels of a group).
 ``--seeds N`` runs the fused main path again for seeds 1 to N-1 and prints
 the ATE of every seed. ``--multi-only`` runs phases 1, 4 (fused) and 11.
+``--pretrain-recipe`` runs phase 1, then ``pretrain_decoders.main`` at its
+defaults (the full recipe: 24 scenes of 400 steps at batch 4096, written to
+``output/pretrained_decoders_torch.npz``), then phase 4 (fused) with the
+decoders just written and with the shipped ones, and prints one JSON line:
+the recipe's wall seconds, steps per second and the ATE of both runs (a
+lost track is reported there, not raised).
 
 It then prints the kernels' JSON line, the card's ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. It needs one CUDA device and the
@@ -255,7 +261,7 @@ def bound_ms(nbytes: float, nops: float):
     raises for a card it holds no row of), and which of the two binds."""
     from niceslam_tpu_torch.utils.roofline import device_peaks
 
-    peaks = device_peaks(f"cuda:{torch.cuda.current_device()}")
+    peaks = device_peaks(torch.cuda.get_device_name())
     t_bytes = nbytes / (peaks.hbm_gbps * 1e9)
     t_ops = nops / peaks.flops_f32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -2353,7 +2359,7 @@ def pretrain_step_bound_ms(batch: int, grid_shapes: dict) -> float:
             flops += t["flops"] + m["flops"]
             nbytes += t["bytes"] + m["bytes"]
     nbytes += 7 * sum(grid_bytes.values())
-    return sol_ms(flops, nbytes, device_peaks(f"cuda:{torch.cuda.current_device()}"))
+    return sol_ms(flops, nbytes, device_peaks(torch.cuda.get_device_name()))
 
 
 def pretrain_step_parity():
@@ -2522,6 +2528,29 @@ def phase_pretrain():
         f"{float(raw[:, 3].max()):.3f}]")
 
 
+def phase_pretrain_recipe(cfg, n_frames: int) -> dict:
+    """The full pretraining recipe on the card, then the fused main path with
+    the decoders it wrote and with the shipped ones."""
+    from niceslam_tpu_torch import pretrain_decoders as pd
+
+    pcfg, _ = pd.parse_args([])
+    t0 = time.perf_counter()
+    if pd.main([]) != 0:
+        raise AssertionError("pretraining failed")
+    wall = time.perf_counter() - t0
+    steps = pcfg.scenes * pcfg.steps
+    out = {"pretrain_wall_s": wall, "steps": steps, "steps_per_s": steps / wall,
+           "batch": pcfg.batch, "frames": n_frames}
+    for name, path in (("trained", pcfg.out), ("shipped", cfg.pretrained_middle_fine)):
+        run_cfg = dataclasses.replace(cfg, pretrained_middle_fine=os.path.abspath(path))
+        try:
+            out[f"ate_cm_{name}"] = phase_main_path(run_cfg, n_frames)["ate_cm"]
+        except AssertionError as e:  # a lost track: the finding, not a failure here
+            out[f"ate_cm_{name}"] = None
+            out[f"lost_{name}"] = str(e)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8)
@@ -2530,6 +2559,8 @@ def main():
     ap.add_argument("--seeds", type=int, default=1)
     ap.add_argument("--multi-only", action="store_true",
                     help="phases 1, 4 (fused) and 11 only")
+    ap.add_argument("--pretrain-recipe", action="store_true",
+                    help="phase 1, the full pretraining recipe, phase 4 with its decoders")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2547,6 +2578,9 @@ def main():
 
     t_all = time.perf_counter()
     phase_card()
+    if args.pretrain_recipe:
+        print(json.dumps(phase_pretrain_recipe(cfg, args.frames)), flush=True)
+        return 0
     if args.multi_only:
         run = phase_main_path(cfg, args.frames, keep=1)
         t0 = time.perf_counter()

@@ -18,8 +18,6 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
-import torch
-
 
 class ChipPeaks(NamedTuple):
     name: str
@@ -37,17 +35,9 @@ _PEAKS = {
 }
 
 
-def device_peaks(device="cuda") -> ChipPeaks:
-    """Peaks of ``device``: a ``torch.device`` or device string (``"cuda"``,
-    ``"cuda:1"``, ``"cpu"``), or a device name as
-    ``torch.cuda.get_device_name`` gives it. Raises for a device without a
-    row."""
-    try:
-        dev = torch.device(device)
-    except (RuntimeError, TypeError):
-        name = str(device)
-    else:
-        name = "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)
+def device_peaks(name: str) -> ChipPeaks:
+    """Peaks of the device called ``name``: ``torch.cuda.get_device_name(dev)``
+    or ``"cpu"``. Raises for a device without a row."""
     key = name.lower()
     for k, v in _PEAKS.items():
         if k in key:

@@ -324,6 +324,73 @@ def test_optimize_window_equals_a_run_schedule_chain(world):
     assert not torch.equal(g1["fine"], grids["fine"])  # the pass moved the map
 
 
+def test_optimize_window_matches_jax(world):
+    """The port's ``optimize_window`` against the JAX package's on the same
+    world, with BA, TV, free space at a non-default band and every decoder
+    trained; the JAX draws of each iteration (``fold_in(key, it)``, then
+    ``categorical`` / ``randint``) are rebuilt here and injected into the
+    port. Losses within rtol 2e-4 / atol 1e-5; grids, decoders and cameras
+    as :func:`_adam_close` states."""
+    (jdec, jgrids, jbounds, jsb), (dec, grids, bounds, sb), _, _ = world
+    colors, depths, cams, valid, fixed = _mapping_inputs(world)
+    plan = mapper.build_stage_plan(5, 0.4, 0.6, MappingConfig().stage_lr)
+    jplan = jmapper.build_stage_plan(5, 0.4, 0.6, MappingConfig().stage_lr)
+    cfg = mapper.MapOptConfig(BA=True, train_all_decoders=True, tv_weight=0.1,
+                              fs_weight=1.0, fs_band=0.1)
+    n = 64
+    rng = np.random.default_rng(3)
+    masks = {lvl: (rng.uniform(size=g.shape[:3] + (1,)) > 0.2).astype(np.float32)
+             for lvl, g in grids.items()}
+    key = jax.random.PRNGKey(13)
+    jg, jd, jc, jl = jmapper.optimize_window(
+        jgrids, jdec, jnp.asarray(cams), jax.tree_util.tree_map(jnp.asarray, masks),
+        jbounds, jsb, JINTR, jnp.asarray(colors), jnp.asarray(depths),
+        jnp.asarray(valid), jnp.asarray(fixed), key, jplan,
+        jmapper.MapOptConfig(*cfg), JRCFG, n)
+
+    logits = jnp.where(jnp.asarray(valid), 0.0, -jnp.inf)
+    pixels = {}
+    for it in range(5):
+        kf_key, kj, ki = jax.random.split(jax.random.fold_in(key, it), 3)
+        fidx = jax.random.categorical(kf_key, logits, shape=(n,))
+        j = jax.random.randint(kj, (n,), 0, JINTR.H)
+        i = jax.random.randint(ki, (n,), 0, JINTR.W)
+        pixels[it] = tuple(torch.from_numpy(np.array(a, np.int64)) for a in (fidx, i, j))
+    g, d, c, losses = mapper.optimize_window(
+        grids, dec, torch.from_numpy(cams.copy()), {k: torch.from_numpy(m) for k, m in masks.items()},
+        bounds, sb, INTR, torch.from_numpy(colors), torch.from_numpy(depths), valid, fixed,
+        None, plan, cfg, RCFG, n, pixels=pixels)
+
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jl), rtol=2e-4, atol=1e-5)
+    assert float(np.abs(np.asarray(jc) - cams).max()) > 1e-5  # BA moved a camera
+    sched = mapper.schedule_arrays(plan, cfg)
+    lvl_of = mapper.LEVEL_ORDER.index
+    pairs = [("cams", c, jc, sched.lr_cam.sum())]
+    pairs += [(f"grid {lvl}", g[lvl], jg[lvl], sched.lr_grids[:, lvl_of(lvl)].sum())
+              for lvl in grids]
+    for key, t in _flatten_with_keys(d):
+        w = jd
+        for part in key.split("/"):
+            w = w[int(part) if isinstance(w, list) else part]
+        pairs.append((key, t, w, sched.lr_dec[:, lvl_of(key.split("/")[0])].sum()))
+    _adam_close(pairs)
+
+
+def _adam_close(pairs, atol=1e-4):
+    """Parameters after an Adam pass: within ``atol``, except for at most 1
+    in 10,000 elements. Adam divides by the root of the second moment, so an
+    element whose gradients are near zero turns a rounding difference into a
+    step of up to its learning rate; those stay within twice the sum of the
+    rates of the pass (``pairs``: name, port tensor, JAX array, that sum)."""
+    beyond = total_n = 0
+    for name, t, w, lr_sum in pairs:
+        err = np.abs(t.detach().numpy() - np.asarray(w))
+        assert err.max() <= max(2.0 * float(lr_sum), atol), (name, float(err.max()))
+        beyond += int((err > atol).sum())
+        total_n += err.size
+    assert beyond <= total_n // 10_000, f"{beyond} of {total_n} elements beyond {atol}"
+
+
 def test_init_state_matches_jax_shapes():
     jst, jbounds, jadj = jinit_state(jax.random.PRNGKey(0), BOUND, 48, 64, kf_capacity=6)
     st, bounds, adj = init_state(BOUND, 48, 64, kf_capacity=6,
