@@ -35,7 +35,10 @@ prints no result):
    pixels: a Gauss-Newton tracking solve and the mapping loss with its
    gradients.
 4. main path, under each route: ``NiceSLAM.step`` of the bench
-   configuration (``bench.py``, strict sync) on the synthetic scene, first
+   configuration (``bench.py``, strict sync) on the synthetic scene, its
+   pose solves and mapping iterations replayed as CUDA graphs
+   (``slam/programs.py``; each graph's capture seconds, node count and
+   launches per replay are printed, and the pool's memory), first
    on the fused route, then on the packed route, with the launch counts of
    every kernel (the route's kernels launched, the other route's not),
    per-frame seconds, peak device memory, per-frame position errors and the
@@ -68,7 +71,8 @@ prints no result):
    ``configs/cofusion.yaml`` (synthetic scene, async, Adam tracking, 8
    frames, a checkpoint at frame 4, trajectory, mesh at resolution 64);
    a restore of the checkpoint equal to the state saved bit for bit; then
-   ``--resume`` from it to frame 8.
+   ``--resume`` from it to frame 8 with ``--no-precompile`` (its graphs
+   captured when first met, the prefetcher running).
 10. real data: the synthetic scene written in the Co-Fusion layout at
    640x480 (PNG colour through ``io/png.py``, ZIP EXR depth, the
    ground-truth trajectory), read back (colour exact, depth bit for bit,
@@ -121,6 +125,17 @@ prints no result):
    step, K2 7, grid gradient only), K3-K5 not; no call inside a scene waits
    for the stream (``set_sync_debug_mode("warn")``); every scene's loss
    finite and falling; the written ``.npz`` loads and gives a finite field.
+
+13. graphs against eager: phase 4's main path again with ``capture=False``
+   (every iteration launched from Python), fused, then packed, then phase
+   7's async run: each must give the digest and the launches of its
+   graphed run. Seconds per frame and peak memory both ways; on the fused
+   route two more frames (tracking only, then a mapping event) under
+   ``torch.profiler`` after each 8-frame run, for the card's busy share
+   graphed and eager.
+
+Phases 4, 7, 8, 9, 10 and 11 (b) run graphed, as ``NiceSLAM`` does on a
+card; phase 11's ranks and phase 12 run eagerly.
 
 ``--profile`` adds a phase after the fused main path: two more every_frame
 groups, the first timed, the second under ``torch.profiler``, for the
@@ -850,14 +865,15 @@ def phase_card_vs_cpu(route: str):
 
 
 # ----------------------------------------------------------------- phase 4
-def new_slam(cfg, n_frames: int, seed: int):
+def new_slam(cfg, n_frames: int, seed: int, capture=None):
     """A ``NiceSLAM`` on the bench's 36-frame trajectory that runs the first
-    ``n_frames`` of it, on the card (the default device)."""
+    ``n_frames`` of it, on the card (the default device); its programs run
+    as CUDA graphs unless ``capture`` is False."""
     from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
     from niceslam_tpu_torch.slam.system import NiceSLAM
 
     reader = SyntheticBoxReader(cfg, n_frames=36)
-    slam = NiceSLAM(cfg, reader=reader, seed=seed)
+    slam = NiceSLAM(cfg, reader=reader, seed=seed, capture=capture)
     slam.n_imgs = n_frames
     return slam, reader
 
@@ -869,18 +885,19 @@ def snapshot(slam) -> dict:
 
 
 def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
-                    keep: int = 0):
-    """``NiceSLAM.step`` over ``n_frames`` under ``route``; with ``keep`` the
-    result holds a :func:`snapshot` after frame ``keep - 1`` and the grids
-    after frame 0 (on the host)."""
+                    keep: int = 0, capture=None):
+    """``NiceSLAM.step`` over ``n_frames`` under ``route`` (graphed, or eager
+    with ``capture=False``); with ``keep`` the result holds a
+    :func:`snapshot` after frame ``keep - 1`` and the grids after frame 0
+    (on the host)."""
     from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY as bwd_tally
     from niceslam_tpu_torch.ops.trilerp_kernels import FWD_TALLY as tally
     from niceslam_tpu_torch.ops.trilinear import sampler_route
 
-    slam, reader = new_slam(cfg, n_frames, seed)
+    slam, reader = new_slam(cfg, n_frames, seed, capture)
     frames = [reader[k] for k in range(n_frames)]
     kept = kept0 = None
-    tag = f"[{route}] seed {seed}"
+    tag = f"[{route}]{' eager' if capture is False else ''} seed {seed}"
     torch.cuda.synchronize()
     start_peak(tag)
     start_bytes = torch.cuda.memory_allocated()
@@ -947,10 +964,23 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
     lost = lost_track(ate_cm, err_cm)
     if lost:
         raise AssertionError(f"{tag}: the track is lost: {lost}")
+    log_captures(tag, slam)
     return dict(launches=launches, slam=slam, reader=reader, ate_cm=ate_cm, dts=dts,
                 peak_bytes=peak, start_bytes=start_bytes, kept=kept, kept0=kept0,
                 seed=seed, route=route, n_frames=n_frames, poses=poses,
                 grids=slam.state.grids)
+
+
+def log_captures(tag: str, slam):
+    """Every graph the run captured: what it runs, its warm-up and capture
+    seconds, node count and launches per replay; the pools' reserved
+    memory."""
+    progs = slam._programs
+    for c in progs.captures:
+        log(f"{tag}: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
+            f"launches per replay {c.launches}")
+    if progs.capture:
+        log(f"{tag}: graph pool {progs.pool_bytes() / 2**20:.1f} MiB reserved")
 
 
 def digest(poses: np.ndarray, grids: dict) -> str:
@@ -1278,12 +1308,13 @@ def sync_site(filename: str, lineno: int) -> str:
     return here
 
 
-def phase_async(cfg, strict: dict):
+def phase_async(cfg, strict: dict, capture=None):
     """The main path in ``sync_method="async"`` (fused route, frames through
-    the prefetcher): its flushed trajectory and map must equal the strict
-    run's bit for bit. Frames 1+ run under ``set_sync_debug_mode("warn")``:
-    each call that waits for the stream is counted by call site; every read
-    of a deferred host copy is counted, and whether it had to wait."""
+    the prefetcher; graphed, or eager with ``capture=False``): its flushed
+    trajectory and map must equal the strict run's bit for bit. Frames 1+
+    run under ``set_sync_debug_mode("warn")``: each call that waits for the
+    stream is counted by call site; every read of a deferred host copy is
+    counted, and whether it had to wait."""
     import warnings
     from collections import Counter
 
@@ -1292,8 +1323,8 @@ def phase_async(cfg, strict: dict):
 
     n = strict["n_frames"]
     acfg = dataclasses.replace(cfg, sync_method="async")
-    slam, reader = new_slam(acfg, n, 0)
-    tag = "[fused] async seed 0"
+    slam, reader = new_slam(acfg, n, 0, capture)
+    tag = f"[fused]{' eager' if capture is False else ''} async seed 0"
     reads = Counter()
     numpy = HostCopy.numpy
 
@@ -1359,9 +1390,11 @@ def phase_async(cfg, strict: dict):
     rejected = [e for e in slam.events if e["event"] == "map_rejected"]
     if rejected:
         raise AssertionError(f"{tag}: mapping passes rejected: {rejected}")
+    log_captures(tag, slam)
     log(f"{tag}: trajectory and grids equal to the strict run's bit for bit; ATE "
         f"{100 * res['ate_rmse']:.4f} cm")
-    return dict(wall=wall, sites=sites, peak_bytes=peak, dts=dts)
+    return dict(wall=wall, sites=sites, peak_bytes=peak, dts=dts, launches=launches,
+                digest=digest(poses, slam.state.grids))
 
 
 def phase_async_fault(cfg, n_frames: int, iters_first: int):
@@ -1517,7 +1550,7 @@ def phase_cli(frames: int = 8):
         log(f"cli: a restore of {os.path.basename(ck)} equals the state that was saved bit for bit: grids, decoders, keyframe DB, "
             f"its bookkeeping, poses")
         del fresh
-        traj2 = run(["--resume", ck], "resume")
+        traj2 = run(["--resume", ck, "--no-precompile"], "resume")
         if not np.array_equal(traj2[:5], traj[:5]):
             raise AssertionError("cli: the resumed trajectory does not start with the "
                                  "saved one")
@@ -1532,6 +1565,83 @@ class _Holder:
         self.state = state
         self._kf_count = int(state.keyframes.count)
         self._kf_slot_frame = state.keyframes.frame_idx.cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------- phase 13
+def frame_seconds(dts) -> str:
+    """Seconds of frame 0, frames 1-5, frame 6 and frame 7 (PERF.md §5's
+    columns) where the run has them, and after frame 0 in all."""
+    parts = [f"0: {dts[0]:.3f}"]
+    if len(dts) >= 8:
+        parts += [f"1-5: {min(dts[1:6]):.3f}-{max(dts[1:6]):.3f}", f"6: {dts[6]:.3f}",
+                  f"7: {dts[7]:.3f}"]
+    return ", ".join(parts + [f"after 0: {sum(dts[1:]):.3f}"])
+
+
+def trace_busy(slam, reader, tag: str, n: int = 2):
+    """``n`` more frames of a finished strict main path under
+    ``torch.profiler`` (a tracking-only frame, then the last frame's
+    mapping event): the card's busy share, its kernel and copy time over
+    the wall of the profiled frames (synchronised); None where the trace
+    holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    first = len(slam.est_c2w)
+    slam.n_imgs = first + n
+    frames = [reader[k] for k in range(first, first + n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for frame in frames:
+            slam.step(frame)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    share = busy / wall if busy > 0 else None
+    log(f"{tag}: frames {first}-{first + n - 1} under the profiler: wall {wall:.3f} s, device "
+        f"time {busy:.4f} s in {sum(e.count for e in kern)} kernels and copies, busy share "
+        + (f"{share:.4f}" if share is not None else "not measured (no device time traced)"))
+    return share
+
+
+def phase_graphs(cfg, graphed: dict, graphed_async: dict, graphed_busy):
+    """The main path eagerly (``capture=False``) in this call against the
+    graphed runs of phases 4 and 7, on the fused route, then the packed
+    one, then async: equal digests and equal launches of every kernel;
+    seconds per frame and peak memory both ways; on the fused route the
+    busy share over two more traced frames, beside the graphed run's."""
+    eager = {}
+    for route in ("fused", "packed"):
+        g = graphed[route]
+        run = eager[route] = phase_main_path(cfg, g["n_frames"], route=route, capture=False)
+        g_digest, e_digest = digest(g["poses"], g["grids"]), digest(run["poses"], run["grids"])
+        log(f"graphs [{route}]: seconds per frame graphed {frame_seconds(g['dts'])}; eager "
+            f"{frame_seconds(run['dts'])}")
+        log(f"graphs [{route}]: peak device memory graphed {g['peak_bytes'] / 2**20:.1f} MiB "
+            f"({(g['peak_bytes'] - g['start_bytes']) / 2**20:.1f} over its start), eager "
+            f"{run['peak_bytes'] / 2**20:.1f} MiB "
+            f"({(run['peak_bytes'] - run['start_bytes']) / 2**20:.1f} over its start)")
+        log(f"graphs [{route}]: sha1 graphed {g_digest}, eager {e_digest}")
+        if g_digest != e_digest:
+            raise AssertionError(f"graphs [{route}]: the graphed and eager main paths differ")
+        if g["launches"] != run["launches"]:
+            raise AssertionError(f"graphs [{route}]: launches graphed {g['launches']}, eager "
+                                 f"{run['launches']}")
+        if route == "fused":
+            busy = trace_busy(run["slam"], run["reader"], "graphs [fused] eager")
+            log(f"graphs [fused]: busy share graphed {graphed_busy}, eager {busy}")
+        del run["slam"]
+    a = phase_async(cfg, eager["fused"], capture=False)
+    log(f"graphs [fused] async: sha1 graphed {graphed_async['digest']}, eager {a['digest']}; "
+        f"host seconds per frame graphed {[round(d, 4) for d in graphed_async['dts']]}, eager "
+        f"{[round(d, 4) for d in a['dts']]}")
+    if a["digest"] != graphed_async["digest"] or a["launches"] != graphed_async["launches"]:
+        raise AssertionError(f"graphs async: graphed {graphed_async['digest']} "
+                             f"{graphed_async['launches']}, eager {a['digest']} {a['launches']}")
+    log("graphs: the graphed main path equals the eager one bit for bit, with the same "
+        "launches, on both routes and in both sync methods")
 
 
 # ------------------------------------------------------- optional profile
@@ -2598,8 +2708,9 @@ def main():
     rows += phase_adam(runs["fused"], cfg)
     if args.profile:
         phase_profile(runs["fused"]["slam"], runs["fused"]["reader"], cfg.mapping.every_frame)
+    graphed_busy = trace_busy(runs["fused"]["slam"], runs["fused"]["reader"], "graphs [fused]")
     del runs["fused"]["slam"]  # the later runs' peak memory is their own
-    phase_async(cfg, runs["fused"])
+    async_run = phase_async(cfg, runs["fused"])
     runs["packed"] = phase_main_path(cfg, args.frames, route="packed")
     for route, run in runs.items():
         log(f"routes: [{route}] frame seconds {[round(d, 4) for d in run['dts']]}, "
@@ -2624,6 +2735,9 @@ def main():
     t0 = time.perf_counter()
     phase_pretrain()
     log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_graphs(cfg, runs, async_run, graphed_busy)
+    log(f"graphs phase: {time.perf_counter() - t0:.1f} s")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]
     log(f"ATE per seed (cm), fused route: {[round(a, 4) for a in ates]}, "

@@ -22,6 +22,11 @@ ranges. The dataset is ``cfg.dataset`` read from ``data.input_folder``
 ``data_input_folder``). The last line of standard output is
 ``{"frames": .., "fps_avg": .., "ate_rmse_cm": ..}``.
 
+On the card the pose solves and mapping iterations run as CUDA graphs
+(``slam/programs.py``), and ``NiceSLAM.precompile`` captures every
+signature before the first frame; ``--no-precompile`` skips that, and each
+graph is then captured when first met. With ``--cpu`` they run eagerly.
+
 On N ranks (``parallel.n_processes: N``, ``parallel.map`` x ``parallel.kf``
 = N, ``parallel/runtime.py``) every rank runs this command with its own
 ``--process-id`` (or ``NICESLAM_PROCESS_ID``), the same config and the same
@@ -105,6 +110,9 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", default=None, metavar="CKPT",
                     help="continue from a checkpoint file")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--no-precompile", action="store_true",
+                    help="skip capturing every graph before the first frame (each is "
+                         "then captured when first met, mid-run)")
     ap.add_argument("--process-id", type=int, default=None,
                     help="this rank's id when parallel.n_processes > 1 "
                          "(else NICESLAM_PROCESS_ID)")
@@ -132,6 +140,8 @@ def _run(args, cfg, rt) -> int:
     n = args.frames if args.frames is not None else len(slam.reader)
     slam.n_imgs = n
     start = slam.restore(args.resume) if args.resume else 0
+    if not args.no_precompile:
+        slam.precompile()
     mesh_every, ckpt_every = cfg.mapping.mesh_freq, cfg.mapping.ckpt_freq
     mesh_stem = os.path.splitext(args.mesh)[0] if args.mesh and lead else None
     profile_dir = args.profile_dir if lead else None

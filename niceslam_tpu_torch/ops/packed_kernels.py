@@ -23,7 +23,8 @@ Every compute function dispatches on the device of its tensors: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the plain PyTorch
 version beside it. The kernels are built from ``csrc/packed_table.cu`` by the
 same nvcc path as ``csrc/trilerp.cu`` (:func:`.trilerp_kernels.build`).
-``LAUNCHES`` counts each kernel's launches.
+``LAUNCHES`` counts each kernel's launches (``COUNTERS``, carried through
+graph replays as in :mod:`.trilerp_kernels`).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 from .trilerp_kernels import CSRC, _launch_check, load_library
 
 LAUNCHES = {"corner_table": 0, "gather_rows": 0, "scatter_corners": 0}
+COUNTERS = {"LAUNCHES": LAUNCHES}
 
 SRC = CSRC / "packed_table.cu"
 _LIB = None

@@ -27,6 +27,10 @@ bound with ``ctypes``. :func:`build` and :func:`load_library` serve every
 ``LAUNCHES`` counts each kernel's launches; ``FWD_TALLY`` splits K1's by
 the variant launched, derivative output and number of points, and
 ``BWD_TALLY`` K2's by which of the grid and point gradients were asked for.
+``COUNTERS`` names the three. A replay of a captured CUDA graph runs no
+Python: :func:`read_counts` and :func:`add_counts` carry the launches that
+a graph's capture recorded over to each of its replays
+(``slam/programs.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,6 +53,7 @@ FWD_TALLY: Counter = Counter()
 # gradient alone (the points are constants); their sum is
 # LAUNCHES["trilerp_bwd"].
 BWD_TALLY: Counter = Counter()
+COUNTERS = {"LAUNCHES": LAUNCHES, "FWD_TALLY": FWD_TALLY, "BWD_TALLY": BWD_TALLY}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SRC = CSRC / "trilerp.cu"
@@ -65,6 +70,22 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     FWD_TALLY.clear()
     BWD_TALLY.clear()
+
+
+def read_counts(counters) -> Dict[str, Counter]:
+    """A reading of the launch counters ``counters`` (a ``COUNTERS``):
+    ``{name: Counter}``. The difference of two readings is what the code
+    between them launched."""
+    return {name: Counter(table) for name, table in counters.items()}
+
+
+def add_counts(counters, delta: Dict[str, Counter], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a difference of two :func:`read_counts`)
+    to ``counters``."""
+    for name, counts in delta.items():
+        table = counters[name]
+        for key, n in counts.items():
+            table[key] = table.get(key, 0) + n * times
 
 
 def find_nvcc() -> str:

@@ -45,7 +45,7 @@ import torch
 from .grid.hierarchy import GridConfig, init_grids
 from .models.decoders import DecoderConfig, init_decoders, nice_forward, tree_leaves, tree_map
 from .models.pretrained import save_decoders_npz
-from .slam.mapper import adam_direction, adam_moments_
+from .slam.mapper import adam_direction, adam_moments_, bias_corrections
 from .slam.tracker import huber
 
 N_OBS = 3  # obstacles per scene
@@ -243,6 +243,7 @@ def train_scene(decoders, grids: Dict[str, torch.Tensor], geom: Dict[str, torch.
     lrs = [cfg.decoders_lr] * n_dec + [cfg.grids_lr] * len(grids)
     mu = [torch.zeros_like(p) for p in leaves]
     nu = [torch.zeros_like(p) for p in leaves]
+    c1, c2 = bias_corrections(cfg.steps, leaves[0].device)
     losses = []
     aux = {}
     for step in range(cfg.steps):
@@ -252,7 +253,7 @@ def train_scene(decoders, grids: Dict[str, torch.Tensor], geom: Dict[str, torch.
         with torch.no_grad():
             for p, g, m, v, lr in zip(leaves, grads, mu, nu, lrs):
                 adam_moments_(m, v, g)
-                p.sub_(lr * adam_direction(m, v, step + 1))
+                p.sub_(lr * adam_direction(m, v, c1[step], c2[step]))
         losses.append(total.detach())
     return torch.stack(losses), {k: t.detach() for k, t in aux.items()}
 

@@ -17,6 +17,13 @@ correction, one shared step count):
 Leaves that no stage of the pass trains (``freeze_for_stage``: the union
 over stages) are not differentiated at all: their moments would stay zero
 and their update zero.
+
+One iteration is :func:`mapping_iteration`. What changes from row to row
+(the learning rates, Adam's bias corrections, the pixel draws) sits in
+device tables (:class:`PassTables`) indexed by a device step counter, as
+the JAX program's traced schedule, so that one captured CUDA graph of an
+iteration serves every row of its stage (``slam/programs.py``). The host
+knows only the stage and which learning rates are 0.
 """
 from __future__ import annotations
 
@@ -307,7 +314,9 @@ def freeze_for_stage(pcfg: ProgConfig) -> Dict[str, object]:
 
 @dataclass
 class AdamState:
-    """``optax.scale_by_adam`` state over a pass's trainable leaves."""
+    """``optax.scale_by_adam`` state over a pass's trainable leaves.
+    ``count`` is the host's count of the steps taken; a step reads its bias
+    corrections from a device table (:func:`bias_corrections`)."""
 
     count: int = 0
     mu: List[torch.Tensor] = field(default_factory=list)
@@ -379,17 +388,92 @@ def adam_moments_(mu: torch.Tensor, nu: torch.Tensor, g: Optional[torch.Tensor])
         nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
 
 
-def adam_direction(mu: torch.Tensor, nu: torch.Tensor, count: int) -> torch.Tensor:
-    """``scale_by_adam``'s bias-corrected update at step ``count`` (from 1)."""
-    # Bias corrections in float32, as optax computes them (1 - b2 in float32
-    # differs from the float64 value by ~1e-5 relative at count 1).
-    k = np.float32(count)
-    bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** k)
-    bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** k)
-    return (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+def bias_corrections(n: int, device, start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``scale_by_adam``'s bias corrections of steps ``start + 1`` to
+    ``start + n`` as two float32 tables ``[n]`` on ``device``, in the form
+    :func:`adam_direction` takes them: ``1 - b**count`` on the CPU, its
+    float32 reciprocal on a card.
+
+    The corrections are float32, as optax computes them (``1 - b2`` in
+    float32 differs from the float64 value by ~1e-5 relative at count 1).
+    The form keeps the bits of dividing by a host float: PyTorch's CUDA
+    ``div`` by a host scalar multiplies by the scalar's float32 reciprocal,
+    its CPU ``div`` divides."""
+    reciprocal = torch.device(device).type == "cuda"
+    one = np.float32(1.0)
+    tables = ([], [])
+    for count in range(start + 1, start + n + 1):
+        for b, out in zip((ADAM_B1, ADAM_B2), tables):
+            c = one - np.float32(b) ** np.float32(count)
+            out.append(one / c if reciprocal else c)
+    return tuple(to_device(np.asarray(t, np.float32), device) for t in tables)
+
+
+def adam_direction(mu: torch.Tensor, nu: torch.Tensor, c1: torch.Tensor,
+                   c2: torch.Tensor) -> torch.Tensor:
+    """``scale_by_adam``'s bias-corrected update, ``c1`` and ``c2`` the
+    step's entries of the :func:`bias_corrections` tables."""
+    if mu.device.type == "cuda":
+        return (mu * c1) / (torch.sqrt(nu * c2) + ADAM_EPS)
+    return (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)
+
+
+# Columns of a pass's learning-rate table: the grid levels, the decoder
+# levels (LEVEL_ORDER each), the window cameras.
+LR_COLUMNS = 2 * len(LEVEL_ORDER) + 1
+
+
+def lr_column(kind: str, lvl: Optional[str]) -> int:
+    """The learning-rate column of a leaf's group."""
+    if kind == "grids":
+        return LEVEL_ORDER.index(lvl)
+    if kind == "decoders":
+        return len(LEVEL_ORDER) + LEVEL_ORDER.index(lvl)
+    return LR_COLUMNS - 1
+
+
+def schedule_lrs(sched: Schedule) -> np.ndarray:
+    """The schedule's learning rates as one float32 table ``[rows,
+    LR_COLUMNS]``."""
+    return np.concatenate(
+        [sched.lr_grids, sched.lr_dec, sched.lr_cam[:, None]], axis=1
+    ).astype(np.float32)
+
+
+def lr_zero(lrs_row: np.ndarray) -> Tuple[bool, ...]:
+    """Which learning-rate columns of a row are 0: a leaf whose learning
+    rate is 0 is not stepped (its moments still are)."""
+    return tuple(bool(z) for z in np.asarray(lrs_row) == 0)
 
 
 @torch.no_grad()
+def adam_step(
+    pp: PassParams,
+    grads: List[Optional[torch.Tensor]],
+    state: AdamState,
+    lrs: torch.Tensor,
+    c1: torch.Tensor,
+    c2: torch.Tensor,
+    grid_masks: Optional[Dict[str, torch.Tensor]],
+    zero: Tuple[bool, ...],
+) -> None:
+    """One ``scale_by_adam`` step on unmasked grads, then ``p -= lr * update
+    * mask`` per group, in place: ``lrs [1, LR_COLUMNS]`` is the step's
+    learning-rate row and ``c1``, ``c2`` its bias corrections, all on the
+    device; ``zero`` is :func:`lr_zero` of the row, known to the host."""
+    for p, g, mu, nu, (kind, lvl) in zip(
+        pp.leaves, grads, state.mu, state.nu, pp.groups
+    ):
+        adam_moments_(mu, nu, g)  # g None: a leaf this stage does not touch
+        col = lr_column(kind, lvl)
+        if zero[col]:
+            continue
+        upd = adam_direction(mu, nu, c1, c2)
+        if kind == "grids" and grid_masks is not None:
+            upd = upd * grid_masks[lvl]
+        p.sub_(lrs[:, col] * upd)
+
+
 def adam_update(
     pp: PassParams,
     grads: List[Optional[torch.Tensor]],
@@ -399,25 +483,110 @@ def adam_update(
     lr_cam: float,
     grid_masks: Optional[Dict[str, torch.Tensor]],
 ) -> None:
-    """One ``scale_by_adam`` step on unmasked grads, then
-    ``p -= lr * update * mask`` per group, in place."""
+    """:func:`adam_step` at host learning rates, the next step of ``state``."""
+    dev = pp.leaves[0].device
+    lrs = np.concatenate([lr_grids, lr_dec, [lr_cam]]).astype(np.float32)[None]
+    c1, c2 = bias_corrections(1, dev, start=state.count)
     state.count += 1
-    for p, g, mu, nu, (kind, lvl) in zip(
-        pp.leaves, grads, state.mu, state.nu, pp.groups
-    ):
-        adam_moments_(mu, nu, g)  # g None: a leaf this stage does not touch
-        if kind == "grids":
-            lr = float(lr_grids[LEVEL_ORDER.index(lvl)])
-        elif kind == "decoders":
-            lr = float(lr_dec[LEVEL_ORDER.index(lvl)])
-        else:
-            lr = float(lr_cam)
-        if lr == 0.0:
-            continue
-        upd = adam_direction(mu, nu, state.count)
-        if kind == "grids" and grid_masks is not None:
-            upd = upd * grid_masks[lvl]
-        p.sub_(lr * upd)
+    adam_step(pp, grads, state, to_device(lrs, dev), c1, c2, grid_masks, lr_zero(lrs[0]))
+
+
+# ------------------------------------------------------------ one iteration
+class PassInputs(NamedTuple):
+    """What a pass's iterations read besides its parameters and tables."""
+
+    bounds: Dict[str, torch.Tensor]
+    scene_bound: torch.Tensor
+    colors: torch.Tensor  # [F, H, W, 3]
+    depths: torch.Tensor  # [F, H, W]
+    frame_valid: torch.Tensor  # [F] bool
+    cam_fixed: torch.Tensor  # [F] bool: the pose receives no gradient
+    masks: Optional[Dict[str, torch.Tensor]]  # update masks [Z, Y, X, 1], or None
+
+
+class PassTables(NamedTuple):
+    """A pass's per-row device tables and the device step counter that
+    indexes them: an iteration reads row ``step`` and advances it, so one
+    captured iteration serves every row (``slam/programs.py``)."""
+
+    lrs: torch.Tensor  # [rows, LR_COLUMNS] float32 (schedule_lrs)
+    c1: torch.Tensor  # [rows] bias corrections of counts 1.. (bias_corrections)
+    c2: torch.Tensor
+    pixels: torch.Tensor  # [rows, 3, n_pixels] int64: each row's (fidx, i, j)
+    losses: torch.Tensor  # [rows] float32, each row's loss
+    step: torch.Tensor  # [1] int64
+
+
+def new_pass_tables(rows: int, n_pixels: int, device, count0: int = 0) -> PassTables:
+    """Tables for ``rows`` rows whose first Adam count is ``count0 + 1``."""
+    c1, c2 = bias_corrections(rows, device, start=count0)
+    return PassTables(
+        lrs=torch.zeros((rows, LR_COLUMNS), dtype=torch.float32, device=device),
+        c1=c1,
+        c2=c2,
+        pixels=torch.zeros((rows, 3, n_pixels), dtype=torch.long, device=device),
+        losses=torch.zeros((rows,), dtype=torch.float32, device=device),
+        step=torch.zeros((1,), dtype=torch.long, device=device),
+    )
+
+
+def stack_draws(draws, device) -> torch.Tensor:
+    """Per-row draws (sequences of index tensors) as one int64 table
+    ``[rows, k, n]`` on ``device``."""
+    return torch.stack([
+        torch.stack([t.to(device=device, dtype=torch.long) for t in d]) for d in draws
+    ])
+
+
+@torch.no_grad()
+def start_pass(tab: PassTables, lrs: np.ndarray, pixels: torch.Tensor) -> None:
+    """Fill the first rows of ``tab`` for a pass (learning rates ``[n,
+    LR_COLUMNS]``, draws ``[n, 3, n_pixels]``) and set its step to 0."""
+    n = lrs.shape[0]
+    tab.lrs[:n].copy_(to_device(lrs, tab.lrs.device))
+    tab.pixels[:n].copy_(pixels)
+    tab.step.zero_()
+
+
+def mapping_iteration(
+    pp: PassParams,
+    opt_state: AdamState,
+    tab: PassTables,
+    inp: PassInputs,
+    intr: Intrinsics,
+    pcfg: ProgConfig,
+    rcfg: RenderConfig,
+    stage: str,
+    zero: Tuple[bool, ...],
+    ray_shard: Optional[Tuple[int, int]] = None,
+    tv_term: Optional[Callable] = None,
+    reduce: Optional[Callable] = None,
+) -> None:
+    """Row ``tab.step`` of a pass, in place on ``pp``, ``opt_state`` and
+    ``tab``: that row's draws, the stage's loss and its gradients, the Adam
+    step at the row's learning rates, the loss into ``tab.losses``, then the
+    step counter + 1. ``stage`` and ``zero`` (:func:`lr_zero` of the row)
+    are what the host must know; every value that changes from row to row
+    is read from the device, so a CUDA graph of one call serves every row
+    of its stage. ``ray_shard``, ``tv_term`` and ``reduce`` are
+    :func:`run_schedule`'s."""
+    fidx, i, j = tab.pixels.index_select(0, tab.step)[0]
+    loss = mapping_loss(
+        pp.params, inp.bounds, inp.scene_bound, intr, inp.colors, inp.depths,
+        inp.frame_valid, inp.cam_fixed, fidx, i, j, stage, pcfg.w_color_loss, rcfg,
+        tv_weight=0.0 if tv_term is not None else pcfg.tv_weight,
+        fs_weight=pcfg.fs_weight, fs_band=pcfg.fs_band, ray_shard=ray_shard,
+    )
+    if tv_term is not None and pcfg.tv_weight > 0.0:
+        loss = loss + pcfg.tv_weight * tv_term(pp.params["grids"])
+    grads = list(torch.autograd.grad(loss, pp.leaves, allow_unused=True))
+    if reduce is not None:
+        loss, grads = reduce(loss, grads)
+    row = (t.index_select(0, tab.step) for t in (tab.lrs, tab.c1, tab.c2))
+    adam_step(pp, grads, opt_state, *row, inp.masks, zero)
+    with torch.no_grad():
+        tab.losses.index_copy_(0, tab.step, loss.detach().reshape(1))
+        tab.step.add_(1)
 
 
 def run_schedule(
@@ -441,48 +610,47 @@ def run_schedule(
     reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Run one schedule chunk in place on ``pp`` and ``opt_state``; returns
-    the per-row losses (0 on inactive rows), still on the device.
+    the per-row losses (0 on inactive rows), still on the device. Each
+    active row is one :func:`mapping_iteration` on tables made for the
+    chunk.
 
     ``pixels`` maps a row's ``iter_idx`` to injected ``(fidx, i, j)`` draws;
-    by default each active row draws from ``gen``. The sharded mapping
-    program (``parallel/sharded_mapper.py``) passes three more: each row
-    still draws all ``n_pixels`` rays and evaluates its ``ray_shard``;
-    ``tv_term(grids)`` takes the place of ``mapping_loss``'s TV sum; and
-    ``reduce(loss, grads)`` returns the loss and gradients summed over the
-    ranks before the Adam step.
+    by default each active row draws from ``gen``, all rows up front in row
+    order (nothing else draws from ``gen`` during a pass, so these are the
+    draws that row by row would give). The sharded mapping program
+    (``parallel/sharded_mapper.py``) passes three more: each row still draws
+    all ``n_pixels`` rays and evaluates its ``ray_shard``; ``tv_term(grids)``
+    takes the place of ``mapping_loss``'s TV sum; and ``reduce(loss,
+    grads)`` returns the loss and gradients summed over the ranks before
+    the Adam step.
     """
     dev = colors.device
-    valid_t = to_device(frame_valid, dev)
-    fixed_t = to_device(cam_fixed, dev)
-    valid_idx = to_device(np.flatnonzero(frame_valid), dev)
-    masks = grid_masks if pcfg.frustum else None
-    losses = []
-    for r in range(len(sched)):
-        if not sched.active[r]:
-            losses.append(torch.zeros((), device=dev))
-            continue
-        stage = STAGE_ORDER[int(sched.stage_ids[r])]
-        if pixels is not None:
-            fidx, i, j = pixels[int(sched.iter_idx[r])]
-        else:
-            fidx, i, j = draw_mapping_pixels(gen, valid_idx, pcfg.n_pixels, intr, dev)
-        loss = mapping_loss(
-            pp.params, bounds, scene_bound, intr, colors, depths, valid_t,
-            fixed_t, fidx, i, j, stage, pcfg.w_color_loss, rcfg,
-            tv_weight=0.0 if tv_term is not None else pcfg.tv_weight,
-            fs_weight=pcfg.fs_weight, fs_band=pcfg.fs_band, ray_shard=ray_shard,
+    rows = np.flatnonzero(sched.active)
+    inp = PassInputs(
+        bounds, scene_bound, colors, depths, to_device(frame_valid, dev),
+        to_device(cam_fixed, dev), grid_masks if pcfg.frustum else None,
+    )
+    if pixels is None:
+        valid_idx = to_device(np.flatnonzero(frame_valid), dev)
+        draws = [draw_mapping_pixels(gen, valid_idx, pcfg.n_pixels, intr, dev) for _ in rows]
+    else:
+        draws = [pixels[int(sched.iter_idx[r])] for r in rows]
+    lrs = schedule_lrs(sched)[rows]
+    tab = new_pass_tables(len(rows), pcfg.n_pixels, dev, count0=opt_state.count)
+    if len(rows):
+        start_pass(tab, lrs, stack_draws(draws, dev))
+    for k, r in enumerate(rows):
+        mapping_iteration(
+            pp, opt_state, tab, inp, intr, pcfg, rcfg,
+            STAGE_ORDER[int(sched.stage_ids[r])], lr_zero(lrs[k]),
+            ray_shard=ray_shard, tv_term=tv_term, reduce=reduce,
         )
-        if tv_term is not None and pcfg.tv_weight > 0.0:
-            loss = loss + pcfg.tv_weight * tv_term(pp.params["grids"])
-        grads = list(torch.autograd.grad(loss, pp.leaves, allow_unused=True))
-        if reduce is not None:
-            loss, grads = reduce(loss, grads)
-        adam_update(
-            pp, grads, opt_state, sched.lr_grids[r], sched.lr_dec[r],
-            float(sched.lr_cam[r]), masks,
-        )
-        losses.append(loss.detach())
-    return torch.stack(losses)
+    opt_state.count += len(rows)
+    pos = np.cumsum(sched.active) - 1
+    return torch.stack([
+        tab.losses[pos[r]] if sched.active[r] else torch.zeros((), device=dev)
+        for r in range(len(sched))
+    ])
 
 
 def optimize_window(

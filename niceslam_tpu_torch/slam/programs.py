@@ -1,0 +1,412 @@
+"""Captured programs: the port's counterpart of the JAX package's compiled
+programs and of its ``precompile``.
+
+The JAX package runs a frame's pose solve (``slam/tracker.py``) and a
+mapping pass (``slam/mapper.py``) as compiled XLA programs, one per
+signature, and warms every signature before frame 0. Here an iteration is
+Python over a few thousand small kernels, and on a card the host's cost per
+kernel sets the pace (PERF.md §5). So a :class:`Programs` keeps, per
+signature and device, the static device buffers of one iteration (the
+tracker's :func:`~.tracker.track_iteration`, the mapper's
+:func:`~.mapper.mapping_iteration`) and a CUDA graph of one call of it: one
+graph for a solve, one per stage and set of zero learning rates for a
+mapping pass, whose stages differentiate different leaves. A solve or a
+pass copies its inputs into the buffers, replays the graph once per
+iteration (the device step counter picks each iteration's row of the
+tables), and copies its results out as new tensors: the published map, a
+rollback snapshot and the next pass never share storage with the buffers.
+With ``capture`` off (the CPU) the same buffers run the same Python body
+eagerly.
+
+- A graph is captured at its first use, or by :meth:`MappingProgram.warm`
+  and :meth:`TrackProgram.warm` (``NiceSLAM.precompile``): one warm-up call
+  on a side stream, whose effects on the buffers are undone, then the
+  capture, in ``thread_local`` mode so that the frame prefetcher's thread
+  may pin host memory meanwhile. The graphs of a device share one memory
+  pool: they never run at the same time.
+- A replay runs no Python, so the kernels' launch counters
+  (``ops/trilerp_kernels.COUNTERS``, ``ops/packed_kernels.COUNTERS``) get
+  each graph's launches, as its capture counted them, once per replay; the
+  warm-up's launches are taken out again.
+- Capture or replay that fails raises: nothing falls back to eager.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import time
+from collections import Counter
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.transfer import to_device
+from ..models.decoders import tree_leaves, tree_map
+from ..ops import packed_kernels, trilerp_kernels
+from ..ops.trilinear import get_sampler_route
+from .mapper import (
+    STAGE_ORDER,
+    PassInputs,
+    ProgConfig,
+    Schedule,
+    init_opt_state,
+    lr_zero,
+    make_pass_params,
+    mapping_iteration,
+    new_pass_tables,
+    schedule_lrs,
+    start_pass,
+)
+from .tracker import TrackConfig, new_solve_state, solve_result, start_solve, track_iteration
+
+_COUNTERS = (trilerp_kernels.COUNTERS, packed_kernels.COUNTERS)
+_LIBCUDA = None
+
+
+class Capture(NamedTuple):
+    """One captured graph: what it runs, the seconds its warm-up and capture
+    took, its node count and the kernel launches of one replay."""
+
+    signature: str
+    seconds: float
+    nodes: int
+    launches: Dict[str, int]
+
+
+def launch_counts():
+    """A reading of every kernel's launch counters (one per module)."""
+    return [trilerp_kernels.read_counts(c) for c in _COUNTERS]
+
+
+def restore_counts(reading) -> None:
+    """Set the launch counters to a :func:`launch_counts` reading."""
+    for counters, counts in zip(_COUNTERS, reading):
+        for table in counters.values():
+            if isinstance(table, Counter):
+                table.clear()
+            else:
+                table.update(dict.fromkeys(table, 0))
+        trilerp_kernels.add_counts(counters, counts)
+
+
+def launch_delta(after, before):
+    """What was launched between two :func:`launch_counts` readings."""
+    return [{name: a[name] - b[name] for name in a} for a, b in zip(after, before)]
+
+
+def add_replays(delta, times: int) -> None:
+    """Count ``times`` replays of a graph whose capture launched ``delta``
+    (per module of ``_COUNTERS``, a difference of two readings)."""
+    for counters, d in zip(_COUNTERS, delta):
+        trilerp_kernels.add_counts(counters, d, times)
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a graph captured with ``keep_graph=True``
+    (``cuGraphGetNodes`` of ``libcuda``)."""
+    global _LIBCUDA
+    if _LIBCUDA is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuGraphGetNodes.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+        lib.cuGraphGetNodes.restype = ctypes.c_int
+        _LIBCUDA = lib
+    n = ctypes.c_size_t(0)
+    rc = _LIBCUDA.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return n.value
+
+
+def _copy_tree_(dst, src) -> None:
+    dst, src = tree_leaves(dst), tree_leaves(src)
+    if len(dst) != len(src):
+        raise ValueError(f"{len(src)} tensors for {len(dst)} buffers")
+    torch._foreach_copy_(dst, src)
+
+
+def _clone_tree(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _device(device) -> torch.device:
+    """``device`` with its index (a graph, its pool and stream are per card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class Programs:
+    """Every program of one ``NiceSLAM``: mapping programs keyed on (device,
+    sampler route, ``ProgConfig``, window size, grid shapes), tracking
+    programs on (device, route, ``TrackConfig``, grid shapes); with
+    ``capture`` each holds CUDA graphs. ``captures`` records every graph
+    captured."""
+
+    def __init__(self, capture: bool):
+        self.capture = capture
+        self.captures: List[Capture] = []
+        self.mapping: Dict[tuple, MappingProgram] = {}
+        self.tracking: Dict[tuple, TrackProgram] = {}
+        self._pools: Dict[torch.device, tuple] = {}
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def map_program(self, signature, device, pcfg: ProgConfig, intr, rcfg, grids,
+                    decoders, cams, rows: int) -> "MappingProgram":
+        """The program of this pass's signature (``signature`` names it in
+        the capture records), made on first use from these parameters'
+        shapes with room for ``rows`` rows."""
+        key = (_device(device), get_sampler_route(), pcfg, cams.shape[0],
+               tuple(tuple(g.shape) for g in grids.values()))
+        prog = self.mapping.get(key)
+        if prog is None:
+            prog = self.mapping[key] = MappingProgram(
+                self, key[0], signature, pcfg, intr, rcfg, grids, decoders, cams, rows)
+        return prog
+
+    def track_program(self, device, cfg: TrackConfig, intr, rcfg, params,
+                      grids) -> "TrackProgram":
+        """The pose solve's program on ``device``, made on first use."""
+        key = (_device(device), get_sampler_route(), cfg,
+               tuple(tuple(g.shape) for g in grids.values()))
+        prog = self.tracking.get(key)
+        if prog is None:
+            prog = self.tracking[key] = TrackProgram(
+                self, key[0], cfg, intr, rcfg, params, grids)
+        return prog
+
+    def pool_bytes(self) -> int:
+        """Device memory reserved by the graphs' pools (the allocator's
+        segments of each pool), for measurement."""
+        pools = {tuple(p) for p in self._pools.values()}
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) in pools)
+
+    def _device_context(self, device: torch.device):
+        return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+    def capture_graph(self, device: torch.device, signature: str, body: Callable[[], None],
+                      mutable: List[torch.Tensor]):
+        """A graph of one call of ``body``, which writes only ``mutable``;
+        returns ``(graph, launches of one replay)``. The warm-up call's
+        effects on ``mutable`` and on the launch counters are undone."""
+        t0 = time.perf_counter()
+        if device not in self._pools:
+            with torch.cuda.device(device):
+                self._pools[device] = torch.cuda.graph_pool_handle()
+                self._streams[device] = torch.cuda.Stream(device)
+        stream = self._streams[device]
+        before = launch_counts()
+        saved = [t.detach().clone() for t in mutable]
+        with torch.cuda.device(device):
+            current = torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                body()
+            current.wait_stream(stream)
+            warm = launch_counts()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=self._pools[device], stream=stream,
+                                  capture_error_mode="thread_local"):
+                body()
+            graph.instantiate()
+            delta = launch_delta(launch_counts(), warm)
+            restore_counts(before)
+            with torch.no_grad():
+                for t, s in zip(mutable, saved):
+                    t.copy_(s)
+            torch.cuda.synchronize(device)
+        launches = {k: n for d in delta for k, n in d.get("LAUNCHES", {}).items()}
+        self.captures.append(Capture(signature, time.perf_counter() - t0,
+                                     graph_nodes(graph), launches))
+        return graph, delta
+
+
+class MappingProgram:
+    """One mapping signature on one device: the pass's parameters, Adam
+    moments, inputs and tables as static buffers (``pp``, ``opt``, ``inp``,
+    ``tab``), and one graph of :func:`~.mapper.mapping_iteration` per (stage,
+    zero learning rates)."""
+
+    def __init__(self, programs: Programs, device: torch.device, signature, pcfg: ProgConfig,
+                 intr, rcfg, grids, decoders, cams, rows: int):
+        self.programs, self.device, self.signature = programs, device, signature
+        self.pcfg, self.intr, self.rcfg = pcfg, intr, rcfg
+        self.pp = make_pass_params(grids, decoders, cams, pcfg)
+        self.opt = init_opt_state(self.pp)
+        F = cams.shape[0]
+        z = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+        self.bounds: Dict[str, torch.Tensor] = {}
+        self.scene_bound = z(3, 2)
+        self.inp = PassInputs(
+            bounds=self.bounds, scene_bound=self.scene_bound,
+            colors=z(F, intr.H, intr.W, 3), depths=z(F, intr.H, intr.W),
+            frame_valid=z(F, dtype=torch.bool), cam_fixed=z(F, dtype=torch.bool),
+            masks=({lvl: z(*g.shape[:3], 1) for lvl, g in grids.items()}
+                   if pcfg.frustum else None),
+        )
+        self.tab = new_pass_tables(rows, pcfg.n_pixels, device)
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def _load(self, grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
+              frame_valid: np.ndarray, cam_fixed: np.ndarray, lrs: np.ndarray,
+              pixels: torch.Tensor) -> None:
+        """Copy a pass's inputs into the buffers, zero the moments."""
+        n = lrs.shape[0]
+        if n > self.tab.lrs.shape[0]:
+            # The graphs read the old tables: capture them again.
+            self.tab = new_pass_tables(n, self.pcfg.n_pixels, self.device)
+            self.graphs.clear()
+        with torch.no_grad():
+            _copy_tree_(self.pp.params, {"grids": grids, "decoders": decoders, "cams": cams})
+            torch._foreach_zero_(self.opt.mu + self.opt.nu)
+            if not self.bounds:
+                self.bounds.update({k: torch.empty_like(v, device=self.device)
+                                    for k, v in bounds.items()})
+            _copy_tree_(self.bounds, bounds)
+            self.scene_bound.copy_(scene_bound)
+            self.inp.colors.copy_(colors)
+            self.inp.depths.copy_(depths)
+            self.inp.frame_valid.copy_(to_device(frame_valid, self.device))
+            self.inp.cam_fixed.copy_(to_device(cam_fixed, self.device))
+            if self.inp.masks is not None:
+                _copy_tree_(self.inp.masks, masks)
+        start_pass(self.tab, lrs, pixels)
+        self.opt.count = 0
+
+    def _graph(self, stage: str, zero: Tuple[bool, ...]):
+        key = (stage, zero)
+        if key not in self.graphs:
+            F, refine, ba = self.signature
+            self.graphs[key] = self.programs.capture_graph(
+                self.device,
+                f"map F={F} refine={int(refine)} ba={int(ba)} stage={stage} "
+                f"route={get_sampler_route()} {self.device}",
+                lambda: self._iterate(stage, zero),
+                [*self.pp.leaves, *self.opt.mu, *self.opt.nu, self.tab.losses, self.tab.step],
+            )
+        return self.graphs[key]
+
+    def _iterate(self, stage: str, zero: Tuple[bool, ...]) -> None:
+        mapping_iteration(self.pp, self.opt, self.tab, self.inp, self.intr, self.pcfg,
+                          self.rcfg, stage, zero)
+
+    @staticmethod
+    def _runs(sched: Schedule, lrs: np.ndarray):
+        """The pass's rows as runs of one (stage, zero learning rates)."""
+        runs: List[list] = []
+        for r in range(len(sched)):
+            key = (STAGE_ORDER[int(sched.stage_ids[r])], lr_zero(lrs[r]))
+            if runs and runs[-1][0] == key:
+                runs[-1][1] += 1
+            else:
+                runs.append([key, 1])
+        return runs
+
+    def run(self, grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
+            frame_valid: np.ndarray, cam_fixed: np.ndarray, sched: Schedule,
+            pixels: torch.Tensor):
+        """One pass over every row of ``sched`` (all active) on the draws
+        ``pixels [rows, 3, n_pixels]``; returns new ``(grids, decoders, cams,
+        losses)``. The arguments are not modified."""
+        lrs = schedule_lrs(sched)
+        self._load(grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
+                   frame_valid, cam_fixed, lrs, pixels)
+        with self.programs._device_context(self.device):
+            for (stage, zero), count in self._runs(sched, lrs):
+                if not self.programs.capture:
+                    for _ in range(count):
+                        self._iterate(stage, zero)
+                    continue
+                graph, delta = self._graph(stage, zero)
+                for _ in range(count):
+                    graph.replay()
+                add_replays(delta, count)
+        self.opt.count = len(sched)
+        out = _clone_tree(self.pp.params)
+        return out["grids"], out["decoders"], out["cams"], self.tab.losses[:len(sched)].clone()
+
+    def warm(self, grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
+             frame_valid: np.ndarray, cam_fixed: np.ndarray, sched: Schedule,
+             pixels: torch.Tensor) -> None:
+        """Capture the graph of every run of ``sched`` (with capture on) on
+        these inputs, without running the pass."""
+        lrs = schedule_lrs(sched)
+        self._load(grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
+                   frame_valid, cam_fixed, lrs, pixels)
+        if self.programs.capture:
+            for (stage, zero), _ in self._runs(sched, lrs):
+                self._graph(stage, zero)
+
+
+class TrackProgram:
+    """The pose solve on one device: a copy of the map, the frame and the
+    :class:`~.tracker.SolveState` as static buffers, and one graph of
+    :func:`~.tracker.track_iteration`."""
+
+    def __init__(self, programs: Programs, device: torch.device, cfg: TrackConfig, intr,
+                 rcfg, params, grids):
+        self.programs, self.device, self.cfg, self.intr, self.rcfg = (
+            programs, device, cfg, intr, rcfg)
+        self.params, self.grids = _clone_tree(params), _clone_tree(grids)
+        self.bounds: Dict[str, torch.Tensor] = {}
+        self.scene_bound = torch.zeros((3, 2), device=device)
+        self.color = torch.zeros((intr.H, intr.W, 3), device=device)
+        self.depth = torch.zeros((intr.H, intr.W), device=device)
+        self.st = new_solve_state(cfg, cfg.iters, device)
+        self.graph: Optional[tuple] = None
+
+    def _load(self, params, grids, bounds, scene_bound, color, depth, init, pixels) -> None:
+        with torch.no_grad():
+            _copy_tree_((self.params, self.grids), (params, grids))
+            if not self.bounds:
+                self.bounds.update({k: torch.empty_like(v, device=self.device)
+                                    for k, v in bounds.items()})
+            _copy_tree_(self.bounds, bounds)
+            self.scene_bound.copy_(scene_bound)
+            self.color.copy_(color)
+            self.depth.copy_(depth)
+        start_solve(self.st, init, pixels)
+
+    def _iterate(self) -> None:
+        track_iteration(self.params, self.grids, self.bounds, self.scene_bound, self.intr,
+                        self.color, self.depth, self.st, self.cfg, self.rcfg)
+
+    def _graph(self):
+        if self.graph is None:
+            st = self.st
+            mutable = [st.x, st.losses, st.step] + (
+                [] if st.mu is None else [st.mu, st.nu, st.best, st.best_loss])
+            self.graph = self.programs.capture_graph(
+                self.device,
+                f"track {self.cfg.method} iters={self.cfg.iters} "
+                f"route={get_sampler_route()} {self.device}",
+                self._iterate, mutable,
+            )
+        return self.graph
+
+    def run(self, params, grids, bounds, scene_bound, color, depth, init,
+            pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Solve the pose from ``init [4, 4]`` on the draws ``pixels [iters,
+        2, P]``; returns new ``(c2w [4, 4], losses [iters])``."""
+        self._load(params, grids, bounds, scene_bound, color, depth, init, pixels)
+        with self.programs._device_context(self.device):
+            if self.programs.capture:
+                graph, delta = self._graph()
+                for _ in range(self.cfg.iters):
+                    graph.replay()
+                add_replays(delta, self.cfg.iters)
+            else:
+                for _ in range(self.cfg.iters):
+                    self._iterate()
+            return solve_result(self.st)
+
+    def warm(self, params, grids, bounds, scene_bound, color, depth, init,
+             pixels: torch.Tensor) -> None:
+        """Capture the graph (with capture on) on these inputs, without
+        solving."""
+        self._load(params, grids, bounds, scene_bound, color, depth, init, pixels)
+        if self.programs.capture:
+            self._graph()

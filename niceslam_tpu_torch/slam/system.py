@@ -39,6 +39,13 @@ multi-rank runtime attached with ``MapKfRuntime.attach``
 (``parallel/runtime.py``) runs every mapping pass sharded over its
 ('map', 'kf') mesh and turns both roles off, as in the JAX package.
 
+Programs (``slam/programs.py``): every pose solve and every single-device
+mapping pass runs as a program over static buffers; on a card (``capture``,
+on by default there) each iteration is a replay of a captured CUDA graph,
+the counterpart of the JAX package's jitted programs, and
+:meth:`NiceSLAM.precompile` captures every signature before frame 0. A
+multi-rank runtime's passes and solves run eagerly.
+
 Randomness: grid/decoder init draws from a CPU ``torch.Generator`` seeded
 with ``seed``; tracker, mapper and overlap pixel draws from a generator on
 the main device. Keyframe-window selection uses
@@ -84,8 +91,10 @@ from .mapper import (
     draw_mapping_pixels,
     init_opt_state,
     make_pass_params,
-    run_schedule,
+    schedule_arrays,
+    stack_draws,
 )
+from .programs import Programs
 from .state import (
     add_keyframe,
     init_state,
@@ -100,7 +109,11 @@ class NiceSLAM:
 
     ``devices`` lists the devices of the roles, the main device first; when
     given it takes the place of ``device``. By default it is ``device``
-    followed by the other visible cards (none on the CPU)."""
+    followed by the other visible cards (none on the CPU).
+
+    ``capture`` runs the programs as CUDA graphs: ``None`` (the default)
+    on CUDA devices and not on the CPU; ``False`` on a card runs them
+    eagerly, to compare the two; ``True`` on the CPU raises."""
 
     def __init__(
         self,
@@ -110,6 +123,7 @@ class NiceSLAM:
         device=DEFAULT_DEVICE,
         log_path: Optional[str] = None,
         devices=None,
+        capture: Optional[bool] = None,
     ):
         if devices is not None:
             self.devices = [torch.device(d) for d in devices]
@@ -126,6 +140,15 @@ class NiceSLAM:
             main = self.device.index if self.device.index is not None else torch.cuda.current_device()
             self.devices += [torch.device("cuda", i)
                              for i in range(torch.cuda.device_count()) if i != main]
+        on_cards = all(d.type == "cuda" for d in self.devices)
+        if capture is None:
+            capture = on_cards
+        elif capture and not on_cards:
+            raise ValueError(
+                f"capture=True needs CUDA devices, got {[str(d) for d in self.devices]}: "
+                "CUDA graphs run on a card, the CPU runs the programs eagerly"
+            )
+        self._programs = Programs(capture)
         if cfg.sync_method not in ("strict", "async"):
             raise ValueError(f"unknown sync_method {cfg.sync_method!r}")
         if cfg.tracking.method not in ("gn", "adam"):
@@ -297,25 +320,7 @@ class NiceSLAM:
                 init = constant_speed_warm_start(prev, self._tensor(self.est_c2w[-2]))
             else:
                 init = prev
-            st = self.state
-            td = self._track_device()
-            if td is None:
-                c2w_t, loss_curve = track_frame(
-                    st.decoders, st.grids, self.bounds, self.scene_bound, self.intr,
-                    frame.color, frame.depth, init, self.tcfg, self.rcfg, gen=self.gen,
-                )
-            else:
-                # The tracker role: the whole solve on its device, on draws
-                # from the main generator; only the pose and the loss curve
-                # come back.
-                pixels = [(i.to(td), j.to(td)) for i, j in
-                          draw_track_pixels(self.gen, self.intr, self.tcfg, self.device)]
-                decs, grids, bounds, sbound = self._track_snapshot(td)
-                c2w_t, loss_curve = track_frame(
-                    decs, grids, bounds, sbound, self.intr, frame.color.to(td),
-                    frame.depth.to(td), init.to(td), self.tcfg, self.rcfg, pixels=pixels,
-                )
-                c2w_t, loss_curve = c2w_t.to(self.device), loss_curve.to(self.device)
+            c2w_t, loss_curve = self._solve(frame, init, self._track_device())
             if self.sync_method == "async":
                 # The pose stays on the device: every consumer (warm start,
                 # window, keyframes) is a device op, so nothing waits here.
@@ -329,6 +334,34 @@ class NiceSLAM:
             None if frame.gt_c2w is None else np.asarray(frame.gt_c2w, np.float32)
         )
         return c2w
+
+    def _track_map(self, td):
+        """The device of a pose solve and the map it solves against: the
+        main device's published map (``td`` None), or the tracker role's
+        copy on ``td``."""
+        if td is None:
+            st = self.state
+            return self.device, (st.decoders, st.grids, self.bounds, self.scene_bound)
+        return td, self._track_snapshot(td)
+
+    def _solve(self, frame: Frame, init: torch.Tensor, td=None):
+        """The pose solve of ``frame`` from ``init`` on the published map,
+        through the program of its device (``td``, the tracker role's, or
+        the main one), on draws from the main generator; returns ``(c2w,
+        losses)`` on the main device. With a multi-rank runtime it runs
+        eagerly (``track_frame``)."""
+        if self._runtime is not None:
+            st = self.state
+            return track_frame(
+                st.decoders, st.grids, self.bounds, self.scene_bound, self.intr,
+                frame.color, frame.depth, init, self.tcfg, self.rcfg, gen=self.gen,
+            )
+        dev, (decs, grids, bounds, sbound) = self._track_map(td)
+        pixels = stack_draws(draw_track_pixels(self.gen, self.intr, self.tcfg, self.device), dev)
+        prog = self._programs.track_program(dev, self.tcfg, self.intr, self.rcfg, decs, grids)
+        c2w, losses = prog.run(decs, grids, bounds, sbound, frame.color.to(dev),
+                               frame.depth.to(dev), init.to(dev), pixels)
+        return c2w.to(self.device), losses.to(self.device)
 
     # --------------------------------------------------------------- mapping
     def _window_slots(self, idx: int, coarse: bool, salt: int = 0):
@@ -441,12 +474,7 @@ class NiceSLAM:
 
     def _retrack_event_frame(self, frame: Frame):
         """One extra pose solve for the event frame against the fresh map."""
-        st = self.state
-        c2w_t, _ = track_frame(
-            st.decoders, st.grids, self.bounds, self.scene_bound, self.intr,
-            frame.color, frame.depth, self._tensor(self.est_c2w[-1]),
-            self.tcfg, self.rcfg, gen=self.gen,
-        )
+        c2w_t, _ = self._solve(frame, self._tensor(self.est_c2w[-1]))
         self.est_c2w[-1] = (
             c2w_t if self.sync_method == "async"
             else c2w_t.cpu().numpy().astype(np.float32)
@@ -483,6 +511,82 @@ class NiceSLAM:
             fs_weight=m.fs_weight,
             fs_band=m.fs_band,
         )
+
+    # ------------------------------------------------------------ precompile
+    def _precompile_signatures(self):
+        """Every ``(F, refine, ba)`` mapping signature a run can meet, as the
+        JAX package's ``NiceSLAM._precompile_signatures`` lists them: the
+        window, with BA when ``mapping.BA``, and the doubled refine window
+        when ``mapping.color_refine``."""
+        m = self.cfg.mapping
+        W = m.mapping_window_size
+        sigs = [(W, False, False)]
+        if m.BA:
+            sigs.append((W, False, True))
+        if m.color_refine:
+            sigs.append((2 * W, True, False))
+            if m.BA:
+                sigs.append((2 * W, True, True))
+        return sigs
+
+    def precompile(self):
+        """Make every program a run can meet, and on a card capture its
+        graphs, on dummy inputs, as the JAX package's ``precompile`` warms its
+        programs: the pose solve's (unless ``tracking.gt_camera``), and for
+        each of :meth:`_precompile_signatures` the graph of every stage its
+        pass runs, the coarse pass's too on the window without BA (on the
+        coarse expert's device when there is one). The dummies are ones for
+        colors and depths, identity poses, every window slot valid and
+        fixed, all-ones masks and pixel (0, 0) of slot 0: nothing is drawn
+        from ``self.gen``, so a run's trajectory is the same with or without
+        this. A signature met later (the first pass with decoders trained by
+        ``mapping.decoder_train: init``) is captured when it is met. With a
+        multi-rank runtime attached, passes run eagerly: nothing to do."""
+        if self._runtime is not None:
+            return
+        m = self.cfg.mapping
+        H, W = self.intr.H, self.intr.W
+        ones = lambda *shape: torch.ones(shape, device=self.device)  # noqa: E731
+        eye = torch.eye(4, device=self.device)
+        if not self.cfg.tracking.gt_camera:
+            # The tracker role's solves, and the event frame's re-track on
+            # the main device.
+            roles = {self._track_device()} | ({None} if m.retrack else set())
+            for td in roles:
+                dev, (decs, grids, bounds, sbound) = self._track_map(td)
+                prog = self._programs.track_program(
+                    dev, self.tcfg, self.intr, self.rcfg, decs, grids)
+                prog.warm(decs, grids, bounds, sbound, ones(H, W, 3).to(dev),
+                          ones(H, W).to(dev), eye.to(dev),
+                          torch.zeros((self.tcfg.iters, 2, self.tcfg.pixels),
+                                      dtype=torch.long, device=dev))
+        st = self.state
+        for F, refine, ba in self._precompile_signatures():
+            mcfg = self._make_mcfg(ba, refine, 1.0)
+            pcfg = self._make_pcfg(mcfg)
+            ratios = (0.0, 0.0) if refine else (m.middle_iter_ratio, m.fine_iter_ratio)
+            passes = [(self.device, build_stage_plan(m.iters, *ratios, m.stage_lr))]
+            if self.cfg.coarse and not (refine or ba):
+                passes.append((self._expert_device() or self.device,
+                               build_stage_plan(m.iters, *ratios, m.stage_lr, coarse=True)))
+            for dev, plan in passes:
+                sched = schedule_arrays(plan, mcfg)
+                rows = max(m.iters, m.bootstrap_iters)
+                if not (refine or ba or plan[0][0] == "coarse"):
+                    rows = max(rows, m.iters_first)
+                grids, decoders, bounds = (_tree_to(t, dev) for t in (st.grids, st.decoders,
+                                                                       self.bounds))
+                cams = tensor_from_camera(eye.expand(F, 4, 4)).to(dev)
+                masks = {lvl: torch.ones(g.shape[:3] + (1,), device=dev)
+                         for lvl, g in grids.items()}
+                prog = self._programs.map_program(
+                    (F, refine, ba), dev, pcfg, self.intr, self.rcfg, grids, decoders, cams,
+                    rows=rows)
+                prog.warm(grids, decoders, cams, masks, bounds, self.scene_bound.to(dev),
+                          ones(F, H, W, 3).to(dev), ones(F, H, W).to(dev),
+                          np.ones((F,), bool), np.ones((F,), bool), sched,
+                          torch.zeros((len(sched), 3, pcfg.n_pixels), dtype=torch.long,
+                                      device=dev))
 
     def _run_mapper(
         self, frame: Frame, cur_c2w, iters, lr_factor, coarse: bool,
@@ -557,44 +661,47 @@ class NiceSLAM:
             }
 
         pcfg = self._make_pcfg(mcfg)
-        n_total = sum(n for _, n, _ in plan)
-        chunks, reals = chunked_schedule(plan, mcfg, min(m.iters, n_total))
         decoders, bounds, scene_bound = self.state.decoders, self.bounds, self.scene_bound
-        run_fn, pixels = run_schedule, None
         rt = self._runtime
-        if rt is not None:
-            grids, masks, run_fn = rt.split(grids), rt.split(masks), rt.run_schedule
-        if device is not None:
-            # Draw on the main generator, in the order the pass would.
+        if rt is None:
+            sched = schedule_arrays(plan, mcfg)
+            # Every row's draws up front, on the main generator, in row order.
+            dev = self.device if device is None else device
             valid_idx = to_device(np.flatnonzero(valid), self.device)
-            pixels = {
-                int(c.iter_idx[r]): tuple(
-                    t.to(device) for t in draw_mapping_pixels(
-                        self.gen, valid_idx, pcfg.n_pixels, self.intr, self.device)
+            pixels = stack_draws([
+                draw_mapping_pixels(self.gen, valid_idx, pcfg.n_pixels, self.intr, self.device)
+                for _ in range(len(sched))
+            ], dev)
+            if device is not None:
+                grids, masks, decoders, bounds = (
+                    _tree_to(t, device) for t in (grids, masks, decoders, bounds)
                 )
-                for c in chunks for r in range(len(c)) if c.active[r]
-            }
-            grids, masks, decoders, bounds = (
-                _tree_to(t, device) for t in (grids, masks, decoders, bounds)
-            )
-            cams, colors, depths, scene_bound = (
-                t.to(device) for t in (cams, colors, depths, scene_bound)
-            )
-        pp = make_pass_params(grids, decoders, cams, pcfg)
-        opt_state = init_opt_state(pp)
-        parts = []
-        for chunk, real in zip(chunks, reals):
-            lo = run_fn(
-                pp, opt_state, chunk, masks, bounds, scene_bound,
-                self.intr, colors, depths, valid, fixed, pcfg, self.rcfg,
-                gen=self.gen, pixels=pixels,
-            )
-            parts.append(lo[:real])
-        losses = torch.cat(parts)
-        params = pp.params
-        new_grids, new_decoders, new_cams = params["grids"], params["decoders"], params["cams"]
-        if rt is not None:
-            new_grids = rt.assemble(new_grids)
+                cams, colors, depths, scene_bound = (
+                    t.to(device) for t in (cams, colors, depths, scene_bound)
+                )
+            prog = self._programs.map_program(
+                (F, refine, ba), dev, pcfg, self.intr, self.rcfg, grids, decoders, cams,
+                rows=len(sched))
+            new_grids, new_decoders, new_cams, losses = prog.run(
+                grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
+                valid, fixed, sched, pixels)
+        else:
+            n_total = sum(n for _, n, _ in plan)
+            chunks, reals = chunked_schedule(plan, mcfg, min(m.iters, n_total))
+            pp = make_pass_params(rt.split(grids), decoders, cams, pcfg)
+            opt_state = init_opt_state(pp)
+            masks = rt.split(masks)
+            parts = []
+            for chunk, real in zip(chunks, reals):
+                lo = rt.run_schedule(
+                    pp, opt_state, chunk, masks, bounds, scene_bound,
+                    self.intr, colors, depths, valid, fixed, pcfg, self.rcfg, gen=self.gen,
+                )
+                parts.append(lo[:real])
+            losses = torch.cat(parts)
+            params = pp.params
+            new_grids = rt.assemble(params["grids"])
+            new_decoders, new_cams = params["decoders"], params["cams"]
         if self.fault_hook is not None:
             new_grids, new_decoders, new_cams, losses = self.fault_hook(
                 idx, (new_grids, new_decoders, new_cams, losses)

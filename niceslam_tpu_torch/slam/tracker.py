@@ -21,6 +21,11 @@ the post-step tensor of the iteration whose pre-step loss was the lowest.
 
 Pixel draws are injectable (``pixels``) so a test can replay the JAX
 reference's draws; by default they come from a ``torch.Generator``.
+
+A solve is a loop of :func:`track_iteration` over a :class:`SolveState`
+whose device step counter picks each iteration's draws and bias
+corrections, so one captured CUDA graph of an iteration serves the whole
+solve (``slam/programs.py``); :func:`track_frame` runs it eagerly.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import torch
 from ..core.pose import camera_from_tensor, se3_exp, tensor_from_camera, to_homogeneous
 from ..core.rays import Intrinsics, draw_pixels, pixel_dirs, sample_rays
 from ..render.renderer import RenderConfig, render_rays
-from .mapper import adam_direction, adam_moments_
+from .mapper import adam_direction, adam_moments_, bias_corrections, stack_draws
 
 
 class TrackConfig(NamedTuple):
@@ -236,32 +241,111 @@ def adam_lr(cfg: TrackConfig, device) -> torch.Tensor:
     ]) * cfg.lr
 
 
-def _track_frame_adam(
-    params, grids, bounds, scene_bound, intr, color, depth, init, cfg, rcfg, pixels,
-):
-    cam = tensor_from_camera(init)
-    mu, nu = torch.zeros_like(cam), torch.zeros_like(cam)
-    lr = adam_lr(cfg, cam.device)
-    best_cam = cam
-    best_loss = torch.full((), float("inf"), device=cam.device)
-    losses = []
-    for it, (i, j) in enumerate(pixels):
-        c = cam.detach().requires_grad_(True)
+class SolveState(NamedTuple):
+    """What one pose solve's iterations read and write besides the map and
+    the frame, all on the device: a solve is :func:`start_solve`, then
+    ``iters`` calls of :func:`track_iteration` (or replays of one captured
+    call, ``slam/programs.py``), then :func:`solve_result`."""
+
+    init: torch.Tensor  # [4, 4] warm start
+    pixels: torch.Tensor  # [iters, 2, P] int64: each iteration's (i, j)
+    losses: torch.Tensor  # [iters] float32
+    step: torch.Tensor  # [1] int64: the iteration to run
+    x: torch.Tensor  # the iterate: GN twist [6], Adam camera tensor [7]
+    # Adam only (None for GN): moments, best post-step tensor and its
+    # pre-step loss, per-entry learning rates, bias corrections [iters].
+    mu: Optional[torch.Tensor] = None
+    nu: Optional[torch.Tensor] = None
+    best: Optional[torch.Tensor] = None
+    best_loss: Optional[torch.Tensor] = None
+    lr: Optional[torch.Tensor] = None
+    c1: Optional[torch.Tensor] = None
+    c2: Optional[torch.Tensor] = None
+
+
+def new_solve_state(cfg: TrackConfig, iters: int, device) -> SolveState:
+    """Buffers for a solve of ``iters`` iterations by ``cfg.method``."""
+    if cfg.method not in ("gn", "adam"):
+        raise ValueError(f"unknown tracking method {cfg.method!r}; expected 'gn' or 'adam'")
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+    st = SolveState(
+        init=z(4, 4),
+        pixels=torch.zeros((iters, 2, cfg.pixels), dtype=torch.long, device=device),
+        losses=z(iters),
+        step=torch.zeros((1,), dtype=torch.long, device=device),
+        x=z(6) if cfg.method == "gn" else z(7),
+    )
+    if cfg.method == "gn":
+        return st
+    c1, c2 = bias_corrections(iters, device)
+    return st._replace(mu=z(7), nu=z(7), best=z(7), best_loss=z(), lr=adam_lr(cfg, device),
+                       c1=c1, c2=c2)
+
+
+@torch.no_grad()
+def start_solve(st: SolveState, init: torch.Tensor, pixels: torch.Tensor) -> None:
+    """Set ``st`` to the start of a solve from ``init [4, 4]`` on the draws
+    ``pixels [iters, 2, P]``."""
+    st.init.copy_(init)
+    st.pixels.copy_(pixels)
+    st.step.zero_()
+    if st.mu is None:
+        st.x.zero_()
+        return
+    st.x.copy_(tensor_from_camera(st.init))
+    st.best.copy_(st.x)
+    st.best_loss.fill_(float("inf"))
+    st.mu.zero_()
+    st.nu.zero_()
+
+
+def track_iteration(
+    params, grids, bounds, scene_bound, intr: Intrinsics,
+    color: torch.Tensor, depth: torch.Tensor, st: SolveState,
+    cfg: TrackConfig, rcfg: RenderConfig,
+) -> None:
+    """Iteration ``st.step`` of the solve, in place on ``st``: GN's
+    linearization and step, or Adam's gradient and step with its best-iterate
+    rule; its loss into ``st.losses``; then the step counter + 1. Every value
+    that changes from one iteration to the next is read from the device."""
+    i, j = st.pixels.index_select(0, st.step)[0]
+    if st.mu is None:
+        x, loss = gn_step(
+            params, grids, bounds, scene_bound, intr, color, depth, st.init,
+            st.x, i, j, cfg, rcfg,
+        )
+        with torch.no_grad():
+            st.x.copy_(x)
+    else:
+        c = st.x.detach().requires_grad_(True)
         loss = tracking_loss(
             params, grids, bounds, scene_bound, intr, c, color, depth, i, j, cfg, rcfg,
         )
         (g,) = torch.autograd.grad(loss, c)
-        loss = loss.detach()
-        adam_moments_(mu, nu, g)
-        new_cam = cam - lr * adam_direction(mu, nu, it + 1)
-        # The reference keeps the post-step tensor when the pre-step loss
-        # improves on the best so far.
-        better = loss < best_loss
-        best_cam = torch.where(better, new_cam, best_cam)
-        best_loss = torch.where(better, loss, best_loss)
-        cam = new_cam
-        losses.append(loss)
-    return to_homogeneous(camera_from_tensor(best_cam)), torch.stack(losses)
+        with torch.no_grad():
+            loss = loss.detach()
+            adam_moments_(st.mu, st.nu, g)
+            c1, c2 = (t.index_select(0, st.step) for t in (st.c1, st.c2))
+            new = st.x - st.lr * adam_direction(st.mu, st.nu, c1, c2)
+            # The reference keeps the post-step tensor when the pre-step loss
+            # improves on the best so far.
+            better = loss < st.best_loss
+            st.best.copy_(torch.where(better, new, st.best))
+            st.best_loss.copy_(torch.where(better, loss, st.best_loss))
+            st.x.copy_(new)
+    with torch.no_grad():
+        st.losses.index_copy_(0, st.step, loss.reshape(1))
+        st.step.add_(1)
+
+
+def solve_result(st: SolveState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(c2w [4, 4], per-iteration losses [iters])`` of a finished solve:
+    GN's final iterate, Adam's best; new tensors."""
+    if st.mu is None:
+        pose = se3_exp(st.x) @ st.init
+    else:
+        pose = to_homogeneous(camera_from_tensor(st.best))
+    return pose, st.losses.clone()
 
 
 def track_frame(
@@ -287,19 +371,10 @@ def track_frame(
     init = init_c2w.to(torch.float32)
     if pixels is None:
         pixels = draw_track_pixels(gen, intr, cfg, init.device)
-    if cfg.method == "adam":
-        return _track_frame_adam(
-            params, grids, bounds, scene_bound, intr, color, depth, init, cfg,
-            rcfg, pixels,
+    st = new_solve_state(cfg, len(pixels), init.device)
+    start_solve(st, init, stack_draws(pixels, init.device))
+    for _ in range(len(pixels)):
+        track_iteration(
+            params, grids, bounds, scene_bound, intr, color, depth, st, cfg, rcfg,
         )
-    if cfg.method != "gn":
-        raise ValueError(f"unknown tracking method {cfg.method!r}; expected 'gn' or 'adam'")
-    xi = torch.zeros((6,), dtype=torch.float32, device=init.device)
-    losses = []
-    for i, j in pixels:
-        xi, loss = gn_step(
-            params, grids, bounds, scene_bound, intr, color, depth, init,
-            xi, i, j, cfg, rcfg,
-        )
-        losses.append(loss)
-    return se3_exp(xi) @ init, torch.stack(losses)
+    return solve_result(st)
