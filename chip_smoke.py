@@ -36,9 +36,12 @@ prints no result):
    gradients.
 4. main path, under each route: ``NiceSLAM.step`` of the bench
    configuration (``bench.py``, strict sync) on the synthetic scene, its
-   pose solves and mapping iterations replayed as CUDA graphs
-   (``slam/programs.py``; each graph's capture seconds, node count and
-   launches per replay are printed, and the pool's memory), first
+   pose solves, mapping iterations, keyframe overlaps and frustum masks
+   replayed as CUDA graphs (``slam/programs.py``), all captured by
+   ``NiceSLAM.precompile()`` before frame 0, as the command line does (no
+   keyframe program may be captured later; each graph's capture seconds,
+   node count and launches per replay are printed, and the pool's
+   memory), first
    on the fused route, then on the packed route, with the launch counts of
    every kernel (the route's kernels launched, the other route's not),
    per-frame seconds, peak device memory, per-frame position errors and the
@@ -49,18 +52,23 @@ prints no result):
    gradients are compared on all four levels at a mapping batch's points.
 5. mesher: ``extract_mesh`` at resolution 128 (2,097,152 query points) on
    the packed run's final map under each route, timed once, and one query
-   of the occupancy field per route, the two fields compared, then
-   ``postprocess_mesh`` and ``write_ply`` to a temporary directory.
+   of the occupancy field per route, the two fields compared; under each
+   route the query, ``extract_mesh`` and the vertex colours' query graphed
+   against eager, bit for bit and with the same launches, the seconds of
+   each; then ``postprocess_mesh`` and ``write_ply`` to a temporary
+   directory.
 6. Adam (after the fused run of phase 4): one frame's Adam solve with
    ``configs/cofusion.yaml``'s tracking on that run's frame-0 map, on the
    card and on the CPU with the same injected pixels (poses within 1e-4);
    K2 launched without the grid gradient only; that launch's ``dv`` on the
    solve's first tracking batch against its plain version, timed.
 7. async (after phase 6): the fused main path again in
-   ``sync_method="async"`` with the frames through the prefetcher; its
+   ``sync_method="async"`` with the frames through the prefetcher, after
+   ``precompile()`` as the command line does; its
    trajectory and grids must equal phase 4's bit for bit. Frames 1+ run
    under ``torch.cuda.set_sync_debug_mode("warn")``: the calls that wait
-   for the stream are printed by call site, beside the seconds per frame
+   for the stream are counted by call site and must be none (the mode's
+   one-time prototype notice is not a wait), beside the seconds per frame
    of both runs and the peak device memory.
 8. async fault (after phase 5): a short async run (``iters_first`` cut to
    at most 100) whose first BA mapping event ``fault_hook`` turns to NaN:
@@ -85,8 +93,9 @@ prints no result):
    track, the panels ``480 x 3200 x 3``, K1 and K2 launched and K3-K5 not;
    a second, 2-frame run with ``--profile-dir`` whose trace must hold the
    ``track`` and ``map`` ranges and K1/K2, with the card's busy share per
-   frame; ``render_image`` of the final map timed on the card and, on a
-   32-row band, held against the CPU.
+   frame; ``render_image`` of the final map on the card, graphed against
+   eager (bit for bit, seconds and K1 launches per image both ways) and,
+   on a 32-row band, held against the CPU.
 
 11. multi-device, on the one card: ranks spawned as processes that
    share ``cuda:0`` and meet over gloo (NCCL refuses two ranks on one
@@ -117,8 +126,12 @@ prints no result):
    and full width (batch 4096, ``GridConfig()``, ``DecoderConfig()``), card
    against CPU on one injected batch (loss within 1e-5 relative, every
    gradient within 2e-5 of its leaf's largest entry), then the packed route
-   against the fused one on the card (K3-K5 launched); then
-   ``pretrain_decoders.main`` on the card cut to 3 scenes (one per
+   against the fused one on the card (K3-K5 launched); then the cut recipe
+   below through ``pretrain`` graphed and eagerly (``capture=False``):
+   decoders and every loss bit for bit, K1 11 and K2 7 a step both ways,
+   seconds per step both ways, each envelope's capture seconds and node
+   count, the pool's MiB; then ``pretrain_decoders.main`` (graphed) on the
+   card cut to 3 scenes (one per
    envelope) of 50 steps: each scene's first and last loss, its terms,
    seconds per step beside a bound from ``utils/roofline.py`` and its peak
    device memory; K1 and K2 launched as the step's calls predict (K1 11 a
@@ -127,15 +140,16 @@ prints no result):
    finite and falling; the written ``.npz`` loads and gives a finite field.
 
 13. graphs against eager: phase 4's main path again with ``capture=False``
-   (every iteration launched from Python), fused, then packed, then phase
-   7's async run: each must give the digest and the launches of its
-   graphed run. Seconds per frame and peak memory both ways; on the fused
-   route two more frames (tracking only, then a mapping event) under
-   ``torch.profiler`` after each 8-frame run, for the card's busy share
-   graphed and eager.
+   (every iteration and keyframe program launched from Python), fused,
+   then packed, then phase 7's async run: each must give the digest and
+   the launches of its graphed run. Seconds per frame and peak memory both
+   ways; on the fused route two more frames (tracking only, then a mapping
+   event) under ``torch.profiler`` after each 8-frame run, for the card's
+   busy share graphed and eager.
 
-Phases 4, 7, 8, 9, 10 and 11 (b) run graphed, as ``NiceSLAM`` does on a
-card; phase 11's ranks and phase 12 run eagerly.
+Phases 4, 7, 8, 9, 10, 11 (b) and 12 run graphed, as ``NiceSLAM``,
+``render_image``, the mesher and ``pretrain_decoders`` do on a card; phase
+11's ranks run eagerly.
 
 ``--profile`` adds a phase after the fused main path: two more every_frame
 groups, the first timed, the second under ``torch.profiler``, for the
@@ -144,7 +158,7 @@ host side takes minutes to digest the ~10^5 kernels of a group).
 ``--seeds N`` runs the fused main path again for seeds 1 to N-1 and prints
 the ATE of every seed. ``--multi-only`` runs phases 1, 4 (fused) and 11.
 ``--pretrain-recipe`` runs phase 1, then ``pretrain_decoders.main`` at its
-defaults (the full recipe: 24 scenes of 400 steps at batch 4096, written to
+defaults, graphed (the full recipe: 24 scenes of 400 steps at batch 4096, written to
 ``output/pretrained_decoders_torch.npz``), then phase 4 (fused) with the
 decoders just written and with the shipped ones, and prints one JSON line:
 the recipe's wall seconds, steps per second and the ATE of both runs (a
@@ -898,6 +912,12 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
     frames = [reader[k] for k in range(n_frames)]
     kept = kept0 = None
     tag = f"[{route}]{' eager' if capture is False else ''} seed {seed}"
+    t0 = time.perf_counter()
+    with sampler_route(route):
+        slam.precompile()
+    torch.cuda.synchronize()
+    n_pre = len(slam._programs.captures)
+    log(f"{tag}: precompile {time.perf_counter() - t0:.3f} s, {n_pre} graphs")
     torch.cuda.synchronize()
     start_peak(tag)
     start_bytes = torch.cuda.memory_allocated()
@@ -965,6 +985,7 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
     if lost:
         raise AssertionError(f"{tag}: the track is lost: {lost}")
     log_captures(tag, slam)
+    check_keyframe_captures(tag, slam, n_pre)
     return dict(launches=launches, slam=slam, reader=reader, ate_cm=ate_cm, dts=dts,
                 peak_bytes=peak, start_bytes=start_bytes, kept=kept, kept0=kept0,
                 seed=seed, route=route, n_frames=n_frames, poses=poses,
@@ -981,6 +1002,23 @@ def log_captures(tag: str, slam):
             f"launches per replay {c.launches}")
     if progs.capture:
         log(f"{tag}: graph pool {progs.pool_bytes() / 2**20:.1f} MiB reserved")
+
+
+KEYFRAME_PROGRAMS = ("keyframe_overlap", "frustum_masks")
+
+
+def check_keyframe_captures(tag: str, slam, n_pre: int):
+    """With graphs, ``precompile`` (the first ``n_pre`` captures) captured
+    the keyframe overlap and the frustum masks, and the run captured no
+    keyframe program after it."""
+    if not slam._programs.capture:
+        return
+    sigs = [c.signature.split()[0] for c in slam._programs.captures]
+    late = [s for s in sigs[n_pre:] if s in KEYFRAME_PROGRAMS]
+    if late or not all(name in sigs[:n_pre] for name in KEYFRAME_PROGRAMS):
+        raise AssertionError(f"{tag}: keyframe programs captured by precompile "
+                             f"{[s for s in sigs[:n_pre] if s in KEYFRAME_PROGRAMS]}, later {late}")
+    log(f"{tag}: the keyframe programs were captured by precompile, none later")
 
 
 def digest(poses: np.ndarray, grids: dict) -> str:
@@ -1075,39 +1113,76 @@ def compare_routes_on_map(slam, frame, cfg):
 def phase_mesher(slam, cfg, resolution: int = 128):
     """``extract_mesh`` of the final map under each route, timed once, and
     the occupancy field of one query per route, the two fields compared;
-    ``postprocess_mesh`` and ``write_ply`` of the packed mesh."""
+    under each route the query and the vertex colours graphed (the
+    process-wide programs) against eager (``Programs(capture=False)``), bit
+    for bit, with the seconds of each; ``postprocess_mesh`` and
+    ``write_ply`` of the packed mesh."""
     from niceslam_tpu_torch.eval import mesher
     from niceslam_tpu_torch.ops.trilinear import sampler_route
+    from niceslam_tpu_torch.slam.programs import Programs, shared_programs
 
     st = slam.state
     args = (st.decoders, st.grids, slam.bounds, slam.scene_bound)
     fields, meshes = {}, {}
+
+    def timed(fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
     for route in ("fused", "packed"):
+        eager = Programs(capture=False)
         with sampler_route(route):
             torch.cuda.synchronize()
             start_peak(f"mesher [{route}]")
+            (occ, _), t_first = timed(mesher.query_occupancy_grid, *args, resolution=resolution)
             set_launches({})
-            t0 = time.perf_counter()
-            occ, _ = mesher.query_occupancy_grid(*args, resolution=resolution)
-            t_query = time.perf_counter() - t0
+            (occ, _), t_query = timed(mesher.query_occupancy_grid, *args, resolution=resolution)
             launches = all_launches()
             peak = torch.cuda.max_memory_allocated()
-            t0 = time.perf_counter()
-            meshes[route] = mesher.extract_mesh(
-                *args, resolution=resolution, level=cfg.meshing.level_set)
-            t_all = time.perf_counter() - t0
+            set_launches({})
+            (occ_e, _), t_query_e = timed(mesher.query_occupancy_grid, *args,
+                                          resolution=resolution, programs=eager)
+            launches_e = all_launches()
+            meshes[route], t_all = timed(mesher.extract_mesh, *args, resolution=resolution,
+                                         level=cfg.meshing.level_set)
+            mesh_e, t_all_e = timed(mesher.extract_mesh, *args, resolution=resolution,
+                                    level=cfg.meshing.level_set, programs=eager)
+            vf = meshes[route][0].astype(np.float32)
+            cols, t_col = timed(mesher.query_chunks, *args[:3], vf, 65536, "color", "rgb")
+            cols_e, t_col_e = timed(mesher.query_chunks, *args[:3], vf, 65536, "color", "rgb",
+                                    programs=eager)
         check_route_launches(f"mesher [{route}]", route, launches, forward_only=True)
         if not np.isfinite(occ).all():
             raise AssertionError(f"mesher [{route}]: non-finite occupancy")
-        verts, faces, _ = meshes[route]
+        verts, faces, colors = meshes[route]
         if not (len(verts) > 0 and len(faces) > 0):
             raise AssertionError(f"mesher [{route}]: empty mesh")
+        if launches != launches_e:
+            raise AssertionError(f"mesher [{route}]: query launches graphed {launches}, eager "
+                                 f"{launches_e}")
+        if not (np.array_equal(occ, occ_e) and np.array_equal(cols, cols_e) and all(
+                np.array_equal(a, b) for a, b in zip(meshes[route], mesh_e))):
+            raise AssertionError(f"mesher [{route}]: the graphed query or vertex colours "
+                                 f"differ from the eager ones")
         fields[route] = occ
         log(f"mesher [{route}]: {occ.size} query points in {-(-occ.size // 65536)} chunks: "
-            f"query {t_query:.3f} s (launches {launches}, peak device memory "
-            f"{peak / 2**20:.1f} MiB); extract_mesh {t_all:.3f} s, of which "
-            f"{t_all - t_query:.3f} s past the query (marching tetrahedra on the host, "
-            f"vertex colors): {len(verts)} verts, {len(faces)} faces")
+            f"query graphed {t_query:.3f} s (first, with its capture, {t_first:.3f} s), eager "
+            f"{t_query_e:.3f} s (launches {launches} both ways, peak device memory "
+            f"{peak / 2**20:.1f} MiB); extract_mesh graphed {t_all:.3f} s, eager "
+            f"{t_all_e:.3f} s, of which {t_all - t_query:.3f} / {t_all_e - t_query_e:.3f} s "
+            f"past the query (marching tetrahedra on the host, vertex colors): {len(verts)} "
+            f"verts, {len(faces)} faces; the vertex colours' query graphed {t_col:.3f} s, eager "
+            f"{t_col_e:.3f} s; the field, vertices, faces and colours equal graphed and eager "
+            f"bit for bit")
+    for c in shared_programs("cuda").captures:
+        if c.signature.startswith("mesher_chunk"):
+            log(f"mesher: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
+                f"launches per replay {c.launches}")
+    log(f"mesher: process-wide graph pool {shared_programs('cuda').pool_bytes() / 2**20:.1f} "
+        f"MiB reserved")
     # Tolerance: 1e-4 of the field's scale. The routes' features differ by
     # rounding (K1 fuses the lerp into FMAs, the packed lerp runs op by op)
     # and the decoders carry that to the occupancy.
@@ -1292,6 +1367,13 @@ def phase_adam(run: dict, cfg):
     return rows
 
 
+# What ``set_sync_debug_mode("warn")`` says of a call that waits for the
+# stream. The mode's first use in a process also warns that it is a
+# prototype ("does not yet detect all synchronizing operations"), at the
+# line that sets the mode: that notice is no wait.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def sync_site(filename: str, lineno: int) -> str:
     """Where a call that waited for the stream was made: the innermost frame
     of the package on the stack, else of this repository (``file:line``),
@@ -1325,6 +1407,8 @@ def phase_async(cfg, strict: dict, capture=None):
     acfg = dataclasses.replace(cfg, sync_method="async")
     slam, reader = new_slam(acfg, n, 0, capture)
     tag = f"[fused]{' eager' if capture is False else ''} async seed 0"
+    slam.precompile()  # as the command line does, before the prefetcher starts
+    n_pre = len(slam._programs.captures)
     reads = Counter()
     numpy = HostCopy.numpy
 
@@ -1333,7 +1417,7 @@ def phase_async(cfg, strict: dict, capture=None):
         return numpy(self)
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" in str(message):
+        if SYNC_WARNING in str(message):
             sites[sync_site(filename, lineno)] += 1
 
     torch.cuda.synchronize()
@@ -1390,7 +1474,11 @@ def phase_async(cfg, strict: dict, capture=None):
     rejected = [e for e in slam.events if e["event"] == "map_rejected"]
     if rejected:
         raise AssertionError(f"{tag}: mapping passes rejected: {rejected}")
+    if sites:
+        raise AssertionError(f"{tag}: calls in frames 1-{n - 1} waited for the stream: "
+                             f"{dict(sites)}")
     log_captures(tag, slam)
+    check_keyframe_captures(tag, slam, n_pre)
     log(f"{tag}: trajectory and grids equal to the strict run's bit for bit; ATE "
         f"{100 * res['ate_rmse']:.4f} cm")
     return dict(wall=wall, sites=sites, peak_bytes=peak, dts=dts, launches=launches,
@@ -1861,6 +1949,7 @@ def phase_real_data(frames: int = 6):
     from niceslam_tpu_torch.io import png
     from niceslam_tpu_torch.models.decoders import tree_map
     from niceslam_tpu_torch.render.renderer import render_image
+    from niceslam_tpu_torch.slam.programs import Programs, shared_programs
     from niceslam_tpu_torch.slam.system import NiceSLAM
 
     config = os.path.join(ROOT, "configs", "cofusion.yaml")
@@ -1941,20 +2030,29 @@ def phase_real_data(frames: int = 6):
         st, intr = slam.state, slam.intr
         c2w = torch.as_tensor(slam.est_c2w[-1], dtype=torch.float32, device="cuda")
         depth = torch.from_numpy(depths[-1]).cuda()
-        set_launches({})
-        secs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = render_image(st.decoders, st.grids, slam.bounds, slam.scene_bound, intr,
-                               c2w, depth, "color", slam.rcfg)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        launched = all_launches()
-        check_route_launches("render_image", "fused", launched, forward_only=True)
+        fields = ("rgb", "depth", "depth_var", "weights")
+        ways = {}
+        for way, progs in (("graphed", None), ("eager", Programs(capture=False))):
+            set_launches({})
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = render_image(st.decoders, st.grids, slam.bounds, slam.scene_bound, intr,
+                                   c2w, depth, "color", slam.rcfg, programs=progs)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            launched = all_launches()
+            check_route_launches(f"render_image {way}", "fused", launched, forward_only=True)
+            ways[way] = (out, secs, launched["trilerp_fwd"] // len(secs))
+        out = ways["graphed"][0]
         if not (out.rgb.shape == (intr.H, intr.W, 3) and bool(torch.isfinite(out.rgb).all())
                 and bool(torch.isfinite(out.depth).all())):
             raise AssertionError(f"render: rgb {tuple(out.rgb.shape)} or not finite")
+        same = [k for k in fields if torch.equal(getattr(out, k), getattr(ways["eager"][0], k))]
+        if same != list(fields) or ways["graphed"][2] != ways["eager"][2]:
+            raise AssertionError(f"render: graphed and eager equal only in {same}, K1 per "
+                                 f"image {ways['graphed'][2]} / {ways['eager'][2]}")
         band = intr._replace(H=32, cy=intr.cy - 224)
 
         def band_render(dev):
@@ -1972,10 +2070,17 @@ def phase_real_data(frames: int = 6):
             log(f"render: band {k:<10} card vs CPU max rel err {rel:.3e}")
             if not rel <= 1e-4:
                 raise AssertionError(f"render: {k} card vs CPU differs by {rel:.3e} (> 1e-4)")
-        log(f"render: render_image {intr.W}x{intr.H} on the card: seconds per image "
-            f"{[round(t, 4) for t in secs]} (the first includes warm-up), K1 launches "
-            f"{launched['trilerp_fwd'] // len(secs)} per image; the 32-row band on the CPU "
-            f"{t_cpu:.2f} s")
+        for way, (_, secs, k1) in ways.items():
+            log(f"render: render_image {intr.W}x{intr.H} on the card, {way}: seconds per image "
+                f"{[round(t, 4) for t in secs]} (the first includes warm-up"
+                f"{' and the capture' if way == 'graphed' else ''}), K1 launches {k1} per image")
+        for c in shared_programs("cuda").captures:
+            if c.signature.startswith("render_chunk"):
+                log(f"render: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
+                    f"launches per replay {c.launches}")
+        log(f"render: graphed and eager images equal bit for bit in {', '.join(fields)}; the "
+            f"32-row band on the CPU {t_cpu:.2f} s; process-wide graph pool "
+            f"{shared_programs('cuda').pool_bytes() / 2**20:.1f} MiB reserved")
         del slam, out
     return dt
 
@@ -2531,13 +2636,67 @@ def pretrain_step_parity():
     compare("packed vs fused on the card", results["packed"], results["fused"])
 
 
+def pretrain_graphed_vs_eager():
+    """The cut recipe (``PRETRAIN_SCENES`` x ``PRETRAIN_STEPS`` at batch
+    ``PRETRAIN_BATCH``) through ``pretrain`` graphed, then eagerly
+    (``capture=False``), in this call: the same decoders and every scene's
+    losses and terms bit for bit, K1 and K2 per step both ways, seconds per
+    step both ways, each envelope's capture seconds and node count and the
+    pool's MiB."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    from niceslam_tpu_torch import pretrain_decoders as pd
+    from niceslam_tpu_torch.models.decoders import tree_leaves
+    from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY, FWD_TALLY
+
+    pcfg = pd.PretrainConfig(scenes=PRETRAIN_SCENES, steps=PRETRAIN_STEPS, batch=PRETRAIN_BATCH)
+    steps = PRETRAIN_SCENES * PRETRAIN_STEPS
+    want = pretrain_expected_launches(PRETRAIN_BATCH, steps)
+    runs = {}
+    for way, capture in (("graphed", None), ("eager", False)):
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        clear_tallies()
+        with contextlib.redirect_stderr(err):
+            dec, recs = pd.pretrain(pcfg, "cuda", capture=capture)
+        torch.cuda.synchronize()
+        k1, k2 = Counter(FWD_TALLY), Counter(BWD_TALLY)
+        if (k1, k2) != want:
+            raise AssertionError(f"pretrain {way}: launches K1 {dict(k1)}, K2 {dict(k2)} (want "
+                                 f"{dict(want[0])}, {dict(want[1])})")
+        graphs = [line for line in err.getvalue().splitlines() if line.startswith("graph ")]
+        runs[way] = (dec, recs)
+        log(f"pretrain {way}: K1 {sum(k1.values()) / steps:g} and K2 {sum(k2.values()) / steps:g} "
+            f"a step (as predicted); ms per step by scene "
+            f"{[round(1e3 * r['s_per_step'], 3) for r in recs]}; peak MiB by scene "
+            f"{[round(r['peak_mib'], 1) for r in recs]}"
+            + (f"; pool MiB by scene {[round(r['pool_mib'], 1) for r in recs]}"
+               if capture is None else ""))
+        for line in graphs:
+            log(f"pretrain {way}: {line}")
+        if (capture is None) != (len(graphs) == len(pd.BOUND_SET)):
+            raise AssertionError(f"pretrain {way}: {len(graphs)} graphs captured")
+    (gd, grecs), (ed, erecs) = runs["graphed"], runs["eager"]
+    same_dec = all(torch.equal(a, b) for a, b in zip(tree_leaves(gd), tree_leaves(ed)))
+    same_loss = all(np.array_equal(g["losses"], e["losses"]) and g["aux"] == e["aux"]
+                    for g, e in zip(grecs, erecs))
+    log(f"pretrain: graphed against eager: decoders equal {same_dec}, every step's loss and "
+        f"the last terms equal {same_loss}; ms per step graphed "
+        f"{1e3 * np.mean([r['s_per_step'] for r in grecs]):.3f}, eager "
+        f"{1e3 * np.mean([r['s_per_step'] for r in erecs]):.3f}")
+    if not (same_dec and same_loss):
+        raise AssertionError("pretrain: the graphed recipe differs from the eager one")
+
+
 def pretrain_sync_recorder(sites, in_scene):
     """A ``warnings.showwarning`` that counts the calls which waited for the
     stream by call site, and apart those made inside ``train_scene``."""
     import traceback
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" in str(message):
+        if SYNC_WARNING in str(message):
             site = sync_site(filename, lineno)
             sites[site] += 1
             if any(fr.name == "train_scene" for fr in traceback.extract_stack()):
@@ -2559,6 +2718,7 @@ def phase_pretrain():
     from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY, FWD_TALLY
 
     pretrain_step_parity()
+    pretrain_graphed_vs_eager()
     d = pd.PretrainConfig()
     log(f"cut: pretraining scenes {d.scenes} -> {PRETRAIN_SCENES} (one per envelope), steps "
         f"{d.steps} -> {PRETRAIN_STEPS}; batch {PRETRAIN_BATCH}, GridConfig() and "

@@ -7,8 +7,11 @@ cube split into 6 tets: table-free, watertight, exactly linear-interpolated
 on edges). Color is assigned by a direct point query of the color decoder
 at the vertex positions. The queries run on the device that holds the grids
 (the card, by default) under ``torch.no_grad()``, through whichever sampler
-route is active (``ops.trilinear.sampler_route``); the isosurface, the
-cleanup and the PLY writer are numpy.
+route is active (``ops.trilinear.sampler_route``), a chunk at a time as a
+program (``slam/programs.py``: on a card a replayed CUDA graph, the
+counterpart of the JAX package's jitted ``eval_chunk`` and
+``color_chunk``); the isosurface, the cleanup and the PLY writer are
+numpy.
 """
 from __future__ import annotations
 
@@ -38,20 +41,42 @@ _CORNER_OFFSETS = np.array(
 )  # corner c = x + 2y + 4z
 
 
-def _query_chunks(params, grids, bounds, flat: np.ndarray, chunk: int, fn) -> np.ndarray:
-    """``fn(nice_forward output)`` over ``flat [P, 3]`` in chunks of
-    ``chunk`` points on the grids' device; the last chunk is padded with
-    zeros and the padding dropped."""
+# The outputs a chunk can query: the occupancy logit, the raw colour.
+_COLUMNS = {"occupancy": 3, "rgb": slice(0, 3)}
+
+
+def query_chunks(params, grids, bounds, flat: np.ndarray, chunk: int, stage: str,
+                  output: str, programs=None) -> np.ndarray:
+    """``nice_forward(..., stage)[:, _COLUMNS[output]]`` over ``flat [P,
+    3]`` in chunks of ``chunk`` points on the grids' device, each chunk one
+    call of a program keyed on (stage, output, chunk, the grids' shapes, the
+    sampler route); the last chunk is padded with zeros and the padding
+    dropped. The points go to the device in one copy, the map into the
+    program once, and the result comes back in one copy, the query's one
+    wait. The program lives in ``programs`` (a ``slam.programs.Programs``),
+    by default the process-wide ones, graphs on a card;
+    ``Programs(capture=False)`` runs the same buffers eagerly (on a card,
+    only to compare the two)."""
+    from ..slam.programs import shared_programs  # slam imports the renderer
+
     device = next(iter(grids.values())).device
     pad = (-len(flat)) % chunk
     flat_p = torch.from_numpy(
         np.concatenate([flat, np.zeros((pad, 3), np.float32)])
     ).to(device)
-    with torch.no_grad():
-        out = torch.cat([
-            fn(params, grids, flat_p[i : i + chunk], bounds)
-            for i in range(0, len(flat_p), chunk)
-        ])
+    col = _COLUMNS[output]
+
+    def query(params, grids, bounds, p):
+        return nice_forward(params, grids, p, bounds, stage)[:, col]
+
+    fixed = (params, grids, bounds)
+    if programs is None:
+        programs = shared_programs(device)
+    prog = programs.static_program(
+        f"mesher_chunk {stage} {output} n={chunk}", (), device, query, fixed, (flat_p[:chunk],))
+    prog.load(*fixed)
+    out = torch.cat([prog.run(flat_p[i : i + chunk]).clone()
+                     for i in range(0, len(flat_p), chunk)])
     return out.cpu().numpy()[: len(flat)]
 
 
@@ -77,16 +102,15 @@ def query_occupancy_grid(
     resolution: int = 128,
     chunk: int = 65536,
     stage: str = "fine",
+    programs=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Dense occupancy field over the scene bound.
 
     Returns ``(occ [R, R, R], pts [R, R, R, 3])`` with axis order (z, y, x).
     """
     pts = lattice_points(scene_bound, resolution)
-    occ = _query_chunks(
-        params, grids, bounds, pts.reshape(-1, 3), chunk,
-        lambda pr, g, p, b: nice_forward(pr, g, p, b, stage)[:, 3],
-    )
+    occ = query_chunks(params, grids, bounds, pts.reshape(-1, 3), chunk, stage, "occupancy",
+                        programs)
     return occ.reshape(resolution, resolution, resolution), pts
 
 
@@ -186,18 +210,17 @@ def extract_mesh(
     level: float = 0.0,
     with_color: bool = True,
     chunk: int = 65536,
+    programs=None,
 ):
     """Full pipeline: query field -> marching tets -> per-vertex color."""
     occ, pts = query_occupancy_grid(
-        params, grids, bounds, scene_bound, resolution, chunk
+        params, grids, bounds, scene_bound, resolution, chunk, programs=programs
     )
     verts, faces = marching_tetrahedra(occ, pts, level)
     colors = None
     if with_color and len(verts):
-        cs = _query_chunks(
-            params, grids, bounds, verts.astype(np.float32), chunk,
-            lambda pr, g, p, b: nice_forward(pr, g, p, b, "color")[:, :3],
-        )
+        cs = query_chunks(params, grids, bounds, verts.astype(np.float32), chunk, "color",
+                           "rgb", programs)
         colors = np.clip(cs, 0, 1)
     return verts, faces, colors
 

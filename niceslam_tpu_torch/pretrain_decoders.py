@@ -19,9 +19,12 @@ scene is seen. Shared decoders and per-scene grids are trained jointly on
 One step draws its point sets on the device (:func:`draw_batch`), evaluates
 :func:`pretrain_loss` (``nice_forward`` at four stages, so the sampler's
 kernels run forward on every level and backward into the live grids) and
-takes an ``optax.adam`` step on every decoder leaf and every grid. Nothing
-inside a scene reads a value back to the host; the loss is read once at the
-scene's end.
+takes an ``optax.adam`` step on every decoder leaf and every grid. The step
+after the draws is a program (:class:`PretrainProgram`, one per bound
+envelope, as the script keeps one jitted step per envelope): on the card a
+replay of a captured CUDA graph, each captured before the first scene of
+its envelope. Nothing inside a scene reads a value back to the host; the
+loss is read once at the scene's end.
 
     python -m niceslam_tpu_torch.pretrain_decoders [--cpu] [--scenes 24]
         [--steps 400] [--batch 4096] [--out output/pretrained_decoders_torch.npz]
@@ -45,7 +48,16 @@ import torch
 from .grid.hierarchy import GridConfig, init_grids
 from .models.decoders import DecoderConfig, init_decoders, nice_forward, tree_leaves, tree_map
 from .models.pretrained import save_decoders_npz
+from .ops.trilinear import get_sampler_route
 from .slam.mapper import adam_direction, adam_moments_, bias_corrections
+from .slam.programs import (
+    Programs,
+    add_replays,
+    clone_tree,
+    indexed_device,
+    resolve_capture,
+    shared_programs,
+)
 from .slam.tracker import huber
 
 N_OBS = 3  # obstacles per scene
@@ -229,33 +241,149 @@ def loss_and_grads(decoders, grids, batch, geom, grid_bounds, cfg: PretrainConfi
 
 
 # -------------------------------------------------------------- training
+def _copy_dict_(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]) -> None:
+    torch._foreach_copy_(list(dst.values()), [src[k] for k in dst])
+
+
+class PretrainProgram:
+    """The pretraining step of one bound envelope over static buffers: the
+    decoders and a scene's grids (leaves that require grad), their Adam
+    moments, the scene's geometry and grid bounds, one step's point sets
+    (``batch``), the bias-correction tables of the scene's steps, the
+    device step counter that indexes them, every step's loss
+    (``losses [steps]``) and the last step's terms (``aux``). A scene
+    copies its inputs in, runs :meth:`step` once per step (with capture: a
+    replay of its graph), and copies the decoders and grids out. The
+    learning rates are constants of the step."""
+
+    def __init__(self, programs: Programs, device: torch.device, cfg: PretrainConfig,
+                 decoders, grids, geom, grid_bounds):
+        self.programs, self.device, self.cfg = programs, device, cfg
+        self.decoders = trainable(clone_tree(decoders))
+        self.grids = trainable(clone_tree(grids))
+        self.leaves = trainable_leaves(self.decoders, self.grids)
+        n_dec = len(self.leaves) - len(self.grids)
+        self.lrs = [cfg.decoders_lr] * n_dec + [cfg.grids_lr] * len(self.grids)
+        self.mu = [torch.zeros_like(p) for p in self.leaves]
+        self.nu = [torch.zeros_like(p) for p in self.leaves]
+        self.geom, self.grid_bounds = clone_tree(geom), clone_tree(grid_bounds)
+        self.batch = empty_batch(cfg.batch, device)
+        self.c1, self.c2 = bias_corrections(cfg.steps, device)
+        self.losses = torch.zeros((cfg.steps,), device=device)
+        self.counter = torch.zeros((1,), dtype=torch.long, device=device)
+        self.aux: Optional[Dict[str, torch.Tensor]] = None
+        self.graph: Optional[tuple] = None
+
+    def step(self) -> None:
+        """Step ``counter`` on ``batch``: the loss and its gradients, the
+        Adam step of every leaf at the counter's bias corrections, the loss
+        into ``losses``, the terms into ``aux``, then the counter + 1."""
+        total, aux, grads = loss_and_grads(self.decoders, self.grids, self.batch, self.geom,
+                                           self.grid_bounds, self.cfg)
+        c1, c2 = (t.index_select(0, self.counter) for t in (self.c1, self.c2))
+        with torch.no_grad():
+            for p, g, m, v, lr in zip(self.leaves, grads, self.mu, self.nu, self.lrs):
+                adam_moments_(m, v, g)  # g None: zero by construction, the moments decay
+                p.sub_(lr * adam_direction(m, v, c1, c2))
+            self.losses.index_copy_(0, self.counter, total.detach().reshape(1))
+            if self.aux is None:  # the first call: eager, or a capture's warm-up
+                self.aux = {k: t.detach().clone() for k, t in aux.items()}
+            else:
+                _copy_dict_(self.aux, aux)
+            self.counter.add_(1)
+
+    def load(self, decoders, grids, geom, grid_bounds) -> None:
+        """Copy a scene's inputs in, zero the moments (the script's
+        per-scene ``tx.init``) and the counter."""
+        with torch.no_grad():
+            torch._foreach_copy_(tree_leaves(self.decoders), tree_leaves(decoders))
+            for dst, src in ((self.grids, grids), (self.geom, geom),
+                             (self.grid_bounds, grid_bounds)):
+                _copy_dict_(dst, src)
+            torch._foreach_zero_(self.mu + self.nu)
+            self.counter.zero_()
+
+    def _graph(self):
+        if self.graph is None:
+            self.graph = self.programs.capture_graph(
+                self.device,
+                f"pretrain step batch={self.cfg.batch} fine={tuple(self.grids['fine'].shape)} "
+                f"route={get_sampler_route()} {self.device}",
+                self.step, [*self.leaves, *self.mu, *self.nu, self.losses, self.counter])
+        return self.graph
+
+    def warm(self, decoders, grids, geom, grid_bounds) -> None:
+        """Capture the graph (with capture on) on a scene's inputs, without
+        stepping."""
+        self.load(decoders, grids, geom, grid_bounds)
+        if self.programs.capture:
+            self._graph()
+
+    def run(self, decoders, grids, geom, grid_bounds, gen, batches):
+        """One scene: ``cfg.steps`` steps, each on a batch drawn from ``gen``
+        or ``batches[step]`` and copied into ``batch``; then the decoders
+        and grids copied back into the arguments, in place. Returns new
+        tensors ``(losses, aux)``."""
+        self.load(decoders, grids, geom, grid_bounds)
+        with self.programs._device_context(self.device):
+            for step in range(self.cfg.steps):
+                batch = (batches[step] if batches is not None
+                         else draw_batch(gen, geom, grid_bounds, self.cfg.batch))
+                with torch.no_grad():
+                    _copy_dict_(self.batch, batch)
+                if self.programs.capture:
+                    graph, delta = self._graph()
+                    graph.replay()
+                    add_replays(delta, 1)
+                else:
+                    self.step()
+        with torch.no_grad():
+            torch._foreach_copy_(tree_leaves(decoders), tree_leaves(self.decoders))
+            _copy_dict_(grids, self.grids)
+        return self.losses.clone(), {k: t.clone() for k, t in self.aux.items()}
+
+
+def empty_batch(batch: int, device) -> Batch:
+    """Zeros in the shapes of :func:`draw_batch`'s point sets at ``batch``."""
+    n_per = max(batch // (2 * N_OBS), 1)
+    z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
+    return {"p_uni": z(batch, 3), "p_room": z(batch // 2, 3),
+            "f_room": torch.zeros((batch // 2,), dtype=torch.long, device=device),
+            "p_obs": z(N_OBS * n_per, 3), "p_c": z(batch, 3)}
+
+
+def scene_program(programs: Programs, decoders, grids, geom, grid_bounds,
+                  cfg: PretrainConfig) -> PretrainProgram:
+    """The step's program for these grids' shapes (one per bound envelope)
+    in ``programs``, made on first use."""
+    device = indexed_device(grids["fine"].device)
+    key = (device, get_sampler_route(), cfg, tuple(tuple(g.shape) for g in grids.values()))
+    prog = programs.pretraining.get(key)
+    if prog is None:
+        prog = programs.pretraining[key] = PretrainProgram(
+            programs, device, cfg, decoders, grids, geom, grid_bounds)
+    return prog
+
+
 def train_scene(decoders, grids: Dict[str, torch.Tensor], geom: Dict[str, torch.Tensor],
                 grid_bounds: Dict[str, torch.Tensor], cfg: PretrainConfig,
                 gen: Optional[torch.Generator] = None,
-                batches: Optional[Sequence[Batch]] = None):
+                batches: Optional[Sequence[Batch]] = None, capture: Optional[bool] = None,
+                programs: Optional[Programs] = None):
     """``cfg.steps`` Adam steps on one scene, in place on ``decoders`` and
     ``grids`` (leaves that require grad), with fresh moments for both, as the
     script's per-scene ``tx.init``. Each step draws from ``gen``, or takes
     ``batches[step]``. Returns the loss of every step ``[steps]`` and the last
-    step's ``aux``, still on the device: nothing here waits for it."""
-    leaves = trainable_leaves(decoders, grids)
-    n_dec = len(leaves) - len(grids)
-    lrs = [cfg.decoders_lr] * n_dec + [cfg.grids_lr] * len(grids)
-    mu = [torch.zeros_like(p) for p in leaves]
-    nu = [torch.zeros_like(p) for p in leaves]
-    c1, c2 = bias_corrections(cfg.steps, leaves[0].device)
-    losses = []
-    aux = {}
-    for step in range(cfg.steps):
-        batch = (batches[step] if batches is not None
-                 else draw_batch(gen, geom, grid_bounds, cfg.batch))
-        total, aux, grads = loss_and_grads(decoders, grids, batch, geom, grid_bounds, cfg)
-        with torch.no_grad():
-            for p, g, m, v, lr in zip(leaves, grads, mu, nu, lrs):
-                adam_moments_(m, v, g)
-                p.sub_(lr * adam_direction(m, v, c1[step], c2[step]))
-        losses.append(total.detach())
-    return torch.stack(losses), {k: t.detach() for k, t in aux.items()}
+    step's ``aux``, still on the device: nothing here waits for it.
+
+    The steps run as the :class:`PretrainProgram` of the grids' shapes in
+    ``programs`` (by default the process-wide programs of ``capture``, which
+    follows ``NiceSLAM``'s rule: graphs on a card unless ``False``, only to
+    compare the two; ``True`` on the CPU raises)."""
+    if programs is None:
+        programs = shared_programs(grids["fine"].device, capture)
+    prog = scene_program(programs, decoders, grids, geom, grid_bounds, cfg)
+    return prog.run(decoders, grids, geom, grid_bounds, gen, batches)
 
 
 def trainable(tree):
@@ -263,16 +391,21 @@ def trainable(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
-def pretrain(cfg: PretrainConfig, device="cuda"):
+def pretrain(cfg: PretrainConfig, device="cuda", capture: Optional[bool] = None):
     """The whole recipe on ``device``: returns the trained decoders and, per
     scene, ``{"scene", "bound", "first", "last", "aux", "s_per_step"}``
-    (and ``peak_mib`` on a card), each also printed to standard error as
-    ``scene S (bound B) {json}``."""
+    (and ``peak_mib`` on a card, ``pool_mib`` with graphs), each also
+    printed to standard error as ``scene S (bound B) {json}``, with its
+    ``losses`` kept off that line. ``capture`` as ``NiceSLAM``'s: graphs on
+    a card by default, ``False`` only to compare the two. The step of an
+    envelope is captured before its first scene (``graph SIGNATURE {json}``
+    on standard error: seconds, nodes, launches per replay)."""
     rng = np.random.default_rng(cfg.seed)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     decoders = trainable(init_decoders(
         DecoderConfig(), gen=torch.Generator().manual_seed(cfg.seed + 1), device=device))
     on_card = torch.device(device).type == "cuda"
+    programs = Programs(resolve_capture(capture, [device]))
     records = []
     for s in range(cfg.scenes):
         bi = s % len(BOUND_SET)
@@ -282,19 +415,30 @@ def pretrain(cfg: PretrainConfig, device="cuda"):
         grids = trainable(grids)
         geom = {k: torch.from_numpy(v).to(device)
                 for k, v in scene_geometry(rng, adj_bound).items()}
+        n_captured = len(programs.captures)
+        scene_program(programs, decoders, grids, geom, grid_bounds, cfg).warm(
+            decoders, grids, geom, grid_bounds)
+        for c in programs.captures[n_captured:]:
+            print(f"graph {c.signature} " + json.dumps(
+                {"seconds": c.seconds, "nodes": c.nodes, "launches": c.launches}),
+                file=sys.stderr, flush=True)
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        losses, aux = train_scene(decoders, grids, geom, grid_bounds, cfg, gen)
+        losses, aux = train_scene(decoders, grids, geom, grid_bounds, cfg, gen,
+                                  programs=programs)
         losses = losses.cpu().numpy()  # the scene's one wait for the device
         dt = time.perf_counter() - t0
         rec = {"scene": s, "bound": bi, "first": float(losses[0]), "last": float(losses[-1]),
                "aux": {k: float(v) for k, v in aux.items()}, "s_per_step": dt / cfg.steps}
         if on_card:
             rec["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+            if programs.capture:
+                rec["pool_mib"] = programs.pool_bytes() / 2**20
         if not np.isfinite(losses[-1]):
             raise FloatingPointError(f"scene {s} diverged: loss {losses[-1]}")
         print(f"scene {s} (bound {bi}) {json.dumps(rec)}", file=sys.stderr, flush=True)
+        rec["losses"] = losses
         records.append(rec)
     return decoders, records
 

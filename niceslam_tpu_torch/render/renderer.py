@@ -103,6 +103,7 @@ def render_image(
     stage: str = "color",
     cfg: RenderConfig = RenderConfig(),
     rows_per_chunk: int = 16,
+    programs=None,
 ) -> compositing.RenderOutputs:
     """Render the image at pose ``c2w`` in chunks of ``rows_per_chunk * W``
     rays, as the JAX package's ``render_image`` does: H is padded to a
@@ -110,7 +111,22 @@ def render_image(
     ``gt_depth``), each chunk goes through :func:`render_rays` (its far
     bound reads the chunk's own largest depth), and the padding is cropped
     off. Returns ``rgb [H, W, 3]``, ``depth``, ``depth_var [H, W]`` and
-    ``weights [H, W, S]``."""
+    ``weights [H, W, S]``.
+
+    A chunk is one program (``slam/programs.py``; the counterpart of the
+    JAX package's ``lax.map`` in one jitted program), keyed on the stage,
+    ``cfg``, ``rows_per_chunk``, W, whether ``gt_depth`` is given, the
+    grids' shapes and the sampler route: the map is copied into its buffers
+    once per image, each chunk's rays before its call. The program lives in
+    ``programs`` (a ``slam.programs.Programs``), by default the process-wide
+    ones, graphs on a card; ``Programs(capture=False)`` runs the same
+    buffers eagerly (on a card, only to compare the two). It passes no generator,
+    so nothing is drawn: ``cfg.n_importance`` samples deterministically,
+    and ``cfg.perturb > 0`` raises, as in the JAX package."""
+    from ..slam.programs import shared_programs  # slam imports this module
+
+    if cfg.perturb > 0.0:
+        raise ValueError("render_image draws nothing: perturb > 0 needs a generator")
     H, W = intr.H, intr.W
     pad = (-H) % rows_per_chunk
     n = rows_per_chunk * W
@@ -122,16 +138,28 @@ def render_image(
             if gt_depth is not None:
                 gt_depth = torch.cat([gt_depth, gt_depth[-1:].expand(pad, W)], 0)
         ro, rd = ro.reshape(-1, n, 3), rd.reshape(-1, n, 3)
-        gd = None if gt_depth is None else gt_depth.reshape(-1, n)
-        outs = [
-            render_rays(params, grids, bounds, scene_bound, ro[k], rd[k],
-                        None if gd is None else gd[k], stage, cfg)
-            for k in range(ro.shape[0])
-        ]
+        chunks = [(ro[k], rd[k]) for k in range(ro.shape[0])]
+        if gt_depth is not None:
+            gd = gt_depth.reshape(-1, n)
+            chunks = [(o, d, gd[k]) for k, (o, d) in enumerate(chunks)]
+
+    def chunk(params, grids, bounds, scene_bound, o, d, g=None):
+        out = render_rays(params, grids, bounds, scene_bound, o, d, g, stage, cfg)
+        return out.rgb, out.depth, out.depth_var, out.weights
+
+    fixed = (params, grids, bounds, scene_bound)
+    if programs is None:
+        programs = shared_programs(c2w.device)
+    prog = programs.static_program(
+        f"render_chunk {stage} rows={rows_per_chunk} W={W}", (cfg,), c2w.device, chunk, fixed,
+        chunks[0])
+    prog.load(*fixed)
+    outs = [tuple(t.clone() for t in prog.run(*args)) for args in chunks]
     Hp = H + pad
+    rgb, depth, depth_var, weights = (torch.cat(ts) for ts in zip(*outs))
     return compositing.RenderOutputs(
-        rgb=torch.cat([o.rgb for o in outs]).reshape(Hp, W, 3)[:H],
-        depth=torch.cat([o.depth for o in outs]).reshape(Hp, W)[:H],
-        depth_var=torch.cat([o.depth_var for o in outs]).reshape(Hp, W)[:H],
-        weights=torch.cat([o.weights for o in outs]).reshape(Hp, W, -1)[:H],
+        rgb=rgb.reshape(Hp, W, 3)[:H],
+        depth=depth.reshape(Hp, W)[:H],
+        depth_var=depth_var.reshape(Hp, W)[:H],
+        weights=weights.reshape(Hp, W, -1)[:H],
     )

@@ -18,6 +18,9 @@ import torch
 from ..core.pose import invert_pose
 from ..core.rays import Intrinsics, sample_rays
 
+# Pixels drawn per mapping event to score the keyframes' overlap.
+OVERLAP_PIXELS = 100
+
 
 def _project(w2c: torch.Tensor, intr: Intrinsics, pts: torch.Tensor):
     """World points [..., N, 3] -> (u, v, z_cam) under w2c [..., 4, 4]."""
@@ -50,7 +53,7 @@ def keyframe_overlap_percentages(
     pts = (
         batch.rays_o[:, None, :] + batch.rays_d[:, None, :] * z_vals[..., None]
     ).reshape(-1, 3)
-    pt_valid = torch.repeat_interleave(batch.gt_depth > 0, n_samples)
+    pt_valid = (batch.gt_depth > 0)[:, None].expand(-1, n_samples).reshape(-1)
     u, v, z = _project(invert_pose(kf_c2w), intr, pts[None])  # [K, P]
     inside = (
         (u > edge) & (u < intr.W - edge) & (v > edge) & (v < intr.H - edge)

@@ -1,29 +1,53 @@
 """Captured programs: the port's counterpart of the JAX package's compiled
 programs and of its ``precompile``.
 
-The JAX package runs a frame's pose solve (``slam/tracker.py``) and a
-mapping pass (``slam/mapper.py``) as compiled XLA programs, one per
-signature, and warms every signature before frame 0. Here an iteration is
-Python over a few thousand small kernels, and on a card the host's cost per
-kernel sets the pace (PERF.md §5). So a :class:`Programs` keeps, per
-signature and device, the static device buffers of one iteration (the
-tracker's :func:`~.tracker.track_iteration`, the mapper's
-:func:`~.mapper.mapping_iteration`) and a CUDA graph of one call of it: one
-graph for a solve, one per stage and set of zero learning rates for a
-mapping pass, whose stages differentiate different leaves. A solve or a
-pass copies its inputs into the buffers, replays the graph once per
-iteration (the device step counter picks each iteration's row of the
-tables), and copies its results out as new tensors: the published map, a
-rollback snapshot and the next pass never share storage with the buffers.
-With ``capture`` off (the CPU) the same buffers run the same Python body
-eagerly.
+The JAX package runs its hot functions as compiled XLA programs, one per
+signature. Here a call is Python over many small kernels, and on a card the
+host's cost per kernel sets the pace (PERF.md §5). So a :class:`Programs`
+keeps, per signature and device, the static device buffers of one call and
+a CUDA graph of it. A call copies its inputs into the buffers, replays the
+graph, and copies its results out as new tensors: nothing a caller keeps
+shares storage with the buffers. With ``capture`` off (the CPU) the same
+buffers run the same Python body eagerly. The programs, each with the JAX
+site it replaces:
 
-- A graph is captured at its first use, or by :meth:`MappingProgram.warm`
-  and :meth:`TrackProgram.warm` (``NiceSLAM.precompile``): one warm-up call
-  on a side stream, whose effects on the buffers are undone, then the
-  capture, in ``thread_local`` mode so that the frame prefetcher's thread
-  may pin host memory meanwhile. The graphs of a device share one memory
-  pool: they never run at the same time.
+- the pose solve (``slam/tracker.py:339``): :class:`TrackProgram`, one
+  graph of :func:`~.tracker.track_iteration`, replayed once per iteration;
+- a mapping pass (``slam/mapper.py:610``): :class:`MappingProgram`, one
+  graph of :func:`~.mapper.mapping_iteration` per stage and set of zero
+  learning rates (the stages differentiate different leaves), replayed
+  once per row of the schedule; the device step counter picks each
+  iteration's row of the tables;
+- keyframe selection (``slam/keyframes.py:42``) and the frustum masks
+  (``slam/keyframes.py:87``, one program per window size and map):
+  :meth:`Programs.overlap_percentages`, :meth:`Programs.frustum_masks`;
+- ``render_image`` (``render/renderer.py:123``): one graph of a row
+  chunk's ``render_rays``, replayed over the chunks;
+- the mesher's ``eval_chunk`` and ``color_chunk`` (``eval/mesher.py:68``,
+  ``:185``): one graph of a chunk's ``nice_forward`` per stage and output;
+- the pretraining step (``scripts/pretrain_decoders.py:213``, one program
+  per bound envelope): ``pretrain_decoders.PretrainProgram``, the loss, its
+  gradients and the Adam step of every leaf, replayed once per step.
+
+Keyframe selection, the frustum masks, ``render_image`` and the mesher's
+chunks are :class:`StaticProgram` s, functions without state of their own.
+The sharded mapping program (``parallel/sharded_mapper.py:328``) runs
+eagerly: its gradients meet in ``all_reduce`` calls that gloo cannot
+capture.
+
+Who owns them: a ``NiceSLAM`` owns its programs (solves, passes, keyframe
+programs), ``pretrain_decoders.pretrain`` owns the recipe's, released with
+it. ``render_image`` and the mesher keep no state between calls, so their
+graphs live in the process-wide programs of :func:`shared_programs`, one per
+capture mode, keyed on the device like every program.
+
+- A graph is captured at its first use, or ahead of it (``warm``, from
+  ``NiceSLAM.precompile`` and ``pretrain``): one warm-up call on a side
+  stream, whose effects on the buffers are undone, then the capture, in
+  ``thread_local`` mode so that the frame prefetcher's thread may pin host
+  memory meanwhile. A capture waits for the device. The graphs of a device
+  share one memory pool: they never run at the same time, and each writes
+  only buffers allocated outside the pool.
 - A replay runs no Python, so the kernels' launch counters
   (``ops/trilerp_kernels.COUNTERS``, ``ops/packed_kernels.COUNTERS``) get
   each graph's launches, as its capture counted them, once per replay; the
@@ -45,6 +69,7 @@ from ..core.transfer import to_device
 from ..models.decoders import tree_leaves, tree_map
 from ..ops import packed_kernels, trilerp_kernels
 from ..ops.trilinear import get_sampler_route
+from . import keyframes as kf_mod
 from .mapper import (
     STAGE_ORDER,
     PassInputs,
@@ -62,6 +87,7 @@ from .tracker import TrackConfig, new_solve_state, solve_result, start_solve, tr
 
 _COUNTERS = (trilerp_kernels.COUNTERS, packed_kernels.COUNTERS)
 _LIBCUDA = None
+_SHARED: Dict[bool, "Programs"] = {}
 
 
 class Capture(NamedTuple):
@@ -126,11 +152,12 @@ def _copy_tree_(dst, src) -> None:
     torch._foreach_copy_(dst, src)
 
 
-def _clone_tree(tree):
+def clone_tree(tree):
+    """Detached copies of a tree's tensors, in the same structure."""
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
-def _device(device) -> torch.device:
+def indexed_device(device) -> torch.device:
     """``device`` with its index (a graph, its pool and stream are per card)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -138,27 +165,122 @@ def _device(device) -> torch.device:
     return device
 
 
+def _shapes(tree) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tree_leaves(tree))
+
+
+def resolve_capture(capture: Optional[bool], devices) -> bool:
+    """Whether programs on ``devices`` run as CUDA graphs: ``None`` on CUDA
+    devices and not on the CPU; ``False`` runs them eagerly (on a card, only
+    to compare the two); ``True`` with a device that is not CUDA raises."""
+    devices = [torch.device(d) for d in devices]
+    on_cards = all(d.type == "cuda" for d in devices)
+    if capture is None:
+        return on_cards
+    if capture and not on_cards:
+        raise ValueError(
+            f"capture=True needs CUDA devices, got {[str(d) for d in devices]}: "
+            "CUDA graphs run on a card, the CPU runs the programs eagerly"
+        )
+    return bool(capture)
+
+
+def shared_programs(device, capture: Optional[bool] = None) -> "Programs":
+    """The process-wide programs of ``capture`` (:func:`resolve_capture` on
+    ``device``), where ``render_image`` and the mesher keep their graphs."""
+    capture = resolve_capture(capture, [device])
+    if capture not in _SHARED:
+        _SHARED[capture] = Programs(capture)
+    return _SHARED[capture]
+
+
 class Programs:
-    """Every program of one ``NiceSLAM``: mapping programs keyed on (device,
-    sampler route, ``ProgConfig``, window size, grid shapes), tracking
-    programs on (device, route, ``TrackConfig``, grid shapes); with
-    ``capture`` each holds CUDA graphs. ``captures`` records every graph
-    captured."""
+    """A set of programs: mapping programs keyed on (device, sampler route,
+    ``ProgConfig``, window size, grid shapes), tracking programs on (device,
+    route, ``TrackConfig``, grid shapes), static programs on (name, device,
+    route, what their function reads besides its arguments, the arguments'
+    shapes), and the pretraining programs that ``pretrain_decoders`` keys;
+    with ``capture`` each holds CUDA graphs. ``captures`` records every
+    graph captured."""
 
     def __init__(self, capture: bool):
         self.capture = capture
         self.captures: List[Capture] = []
         self.mapping: Dict[tuple, MappingProgram] = {}
         self.tracking: Dict[tuple, TrackProgram] = {}
+        self.static: Dict[tuple, StaticProgram] = {}
+        self.pretraining: Dict[tuple, object] = {}
         self._pools: Dict[torch.device, tuple] = {}
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def static_program(self, name: str, key: tuple, device, fn: Callable, fixed=(),
+                       args=()) -> "StaticProgram":
+        """The :class:`StaticProgram` of ``fn`` on ``device`` for these
+        arguments' shapes, made on first use. ``name`` and ``key`` hold
+        every value that ``fn`` reads besides its arguments; ``name`` (its
+        first word says what it runs) names it in the capture records."""
+        device = indexed_device(device)
+        full = (name, device, get_sampler_route(), key, _shapes((fixed, args)))
+        prog = self.static.get(full)
+        if prog is None:
+            prog = self.static[full] = StaticProgram(
+                self, device, f"{name} route={get_sampler_route()} {device}", fn, fixed, args)
+        return prog
+
+    def _overlap(self, intr, c2w, depth, color, kf_c2w, i, j) -> "StaticProgram":
+        return self.static_program(
+            f"keyframe_overlap K={kf_c2w.shape[0]}", (intr,), c2w.device,
+            lambda *a: kf_mod.keyframe_overlap_percentages(intr, *a),
+            args=(c2w, depth, color, kf_c2w, i, j))
+
+    def overlap_percentages(self, intr, c2w, depth, color, kf_c2w, i, j) -> torch.Tensor:
+        """:func:`~.keyframes.keyframe_overlap_percentages` as a program of
+        this system, a new tensor ``[K]``."""
+        prog = self._overlap(intr, c2w, depth, color, kf_c2w, i, j)
+        return prog.run(c2w, depth, color, kf_c2w, i, j).clone()
+
+    def _frustum(self, poses, pose_valid, depths, intr, bounds, grids) -> "StaticProgram":
+        # The bounds are constants of the program (host numbers, as
+        # frustum_voxel_mask reads them); the grids lend their shapes.
+        bkey = tuple((lvl, tuple(float(x) for x in np.asarray(b).ravel()))
+                     for lvl, b in bounds.items())
+        meta = {lvl: torch.empty(g.shape, dtype=g.dtype, device="meta")
+                for lvl, g in grids.items()}
+        return self.static_program(
+            f"frustum_masks F={poses.shape[0]}", (intr, bkey, _shapes(meta)), poses.device,
+            lambda *a: kf_mod.frustum_masks_for_levels(*a, intr, bounds, meta),
+            args=(poses, pose_valid, depths))
+
+    def frustum_masks(self, poses, pose_valid, depths, intr, bounds,
+                      grids) -> Dict[str, torch.Tensor]:
+        """:func:`~.keyframes.frustum_masks_for_levels` as a program of this
+        system (one per window size, bounds and grid shapes), new tensors."""
+        prog = self._frustum(poses, pose_valid, depths, intr, bounds, grids)
+        return clone_tree(prog.run(poses, pose_valid, depths))
+
+    def warm_keyframe_programs(self, intr, bounds, grids, kf_c2w, windows,
+                               overlap: bool) -> None:
+        """Make the keyframe programs a run meets, and with ``capture`` capture
+        them, on dummy inputs: the overlap of ``kf_c2w``'s keyframes (with
+        ``overlap``) and the frustum masks of each window size in
+        ``windows``. Draws nothing."""
+        dev = kf_c2w.device
+        eye = torch.eye(4, device=dev)
+        if overlap:
+            ij = torch.zeros((kf_mod.OVERLAP_PIXELS,), dtype=torch.long, device=dev)
+            self._overlap(intr, eye, torch.ones((intr.H, intr.W), device=dev),
+                          torch.ones((intr.H, intr.W, 3), device=dev), kf_c2w, ij, ij).warm()
+        for F in windows:
+            valid = torch.ones((F,), dtype=torch.bool, device=dev)
+            self._frustum(eye.expand(F, 4, 4), valid, torch.ones((F, intr.H, intr.W), device=dev),
+                          intr, bounds, grids).warm()
 
     def map_program(self, signature, device, pcfg: ProgConfig, intr, rcfg, grids,
                     decoders, cams, rows: int) -> "MappingProgram":
         """The program of this pass's signature (``signature`` names it in
         the capture records), made on first use from these parameters'
         shapes with room for ``rows`` rows."""
-        key = (_device(device), get_sampler_route(), pcfg, cams.shape[0],
+        key = (indexed_device(device), get_sampler_route(), pcfg, cams.shape[0],
                tuple(tuple(g.shape) for g in grids.values()))
         prog = self.mapping.get(key)
         if prog is None:
@@ -169,7 +291,7 @@ class Programs:
     def track_program(self, device, cfg: TrackConfig, intr, rcfg, params,
                       grids) -> "TrackProgram":
         """The pose solve's program on ``device``, made on first use."""
-        key = (_device(device), get_sampler_route(), cfg,
+        key = (indexed_device(device), get_sampler_route(), cfg,
                tuple(tuple(g.shape) for g in grids.values()))
         prog = self.tracking.get(key)
         if prog is None:
@@ -325,7 +447,7 @@ class MappingProgram:
                     graph.replay()
                 add_replays(delta, count)
         self.opt.count = len(sched)
-        out = _clone_tree(self.pp.params)
+        out = clone_tree(self.pp.params)
         return out["grids"], out["decoders"], out["cams"], self.tab.losses[:len(sched)].clone()
 
     def warm(self, grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
@@ -350,7 +472,7 @@ class TrackProgram:
                  rcfg, params, grids):
         self.programs, self.device, self.cfg, self.intr, self.rcfg = (
             programs, device, cfg, intr, rcfg)
-        self.params, self.grids = _clone_tree(params), _clone_tree(grids)
+        self.params, self.grids = clone_tree(params), clone_tree(grids)
         self.bounds: Dict[str, torch.Tensor] = {}
         self.scene_bound = torch.zeros((3, 2), device=device)
         self.color = torch.zeros((intr.H, intr.W, 3), device=device)
@@ -408,5 +530,59 @@ class TrackProgram:
         """Capture the graph (with capture on) on these inputs, without
         solving."""
         self._load(params, grids, bounds, scene_bound, color, depth, init, pixels)
+        if self.programs.capture:
+            self._graph()
+
+
+class StaticProgram:
+    """A function without state of its own, ``fn(*fixed, *args)`` under
+    ``torch.no_grad``, over static copies of its arguments: :meth:`load`
+    copies in ``fixed``, the arguments of many calls (a map), :meth:`run`
+    the ``args`` of one call (a chunk of rays or points). Its outputs (a
+    tensor, or a dict, list or tuple of them) land in static outputs, which
+    :meth:`run` returns and the next call overwrites. With ``capture``, one
+    graph of a call."""
+
+    def __init__(self, programs: Programs, device: torch.device, signature: str,
+                 fn: Callable, fixed, args):
+        self.programs, self.device, self.signature, self.fn = programs, device, signature, fn
+        self.fixed, self.args = clone_tree(fixed), clone_tree(args)
+        self.out = None
+        self.graph: Optional[tuple] = None
+
+    def _body(self) -> None:
+        with torch.no_grad():
+            out = self.fn(*self.fixed, *self.args)
+            if self.out is None:  # the first call: eager, or a capture's warm-up
+                self.out = clone_tree(out)
+            else:
+                _copy_tree_(self.out, out)
+
+    def _graph(self):
+        if self.graph is None:
+            self.graph = self.programs.capture_graph(self.device, self.signature,
+                                                     self._body, [])
+        return self.graph
+
+    def load(self, *fixed) -> None:
+        """Copy in the arguments that stay for the next calls."""
+        with torch.no_grad():
+            _copy_tree_(self.fixed, fixed)
+
+    def run(self, *args):
+        """One call on ``args``: the static outputs."""
+        with torch.no_grad():
+            _copy_tree_(self.args, args)
+        with self.programs._device_context(self.device):
+            if self.programs.capture:
+                graph, delta = self._graph()
+                graph.replay()
+                add_replays(delta, 1)
+            else:
+                self._body()
+        return self.out
+
+    def warm(self) -> None:
+        """Capture the graph (with capture on) on the buffers as they are."""
         if self.programs.capture:
             self._graph()

@@ -39,12 +39,13 @@ multi-rank runtime attached with ``MapKfRuntime.attach``
 (``parallel/runtime.py``) runs every mapping pass sharded over its
 ('map', 'kf') mesh and turns both roles off, as in the JAX package.
 
-Programs (``slam/programs.py``): every pose solve and every single-device
-mapping pass runs as a program over static buffers; on a card (``capture``,
-on by default there) each iteration is a replay of a captured CUDA graph,
-the counterpart of the JAX package's jitted programs, and
-:meth:`NiceSLAM.precompile` captures every signature before frame 0. A
-multi-rank runtime's passes and solves run eagerly.
+Programs (``slam/programs.py``): every pose solve, every single-device
+mapping pass, the keyframe overlap and the frustum masks run as programs
+over static buffers; on a card (``capture``, on by default there) each
+iteration or call is a replay of a captured CUDA graph, the counterpart of
+the JAX package's jitted programs, and :meth:`NiceSLAM.precompile` captures
+every signature before frame 0. A multi-rank runtime's passes and solves
+run eagerly.
 
 Randomness: grid/decoder init draws from a CPU ``torch.Generator`` seeded
 with ``seed``; tracker, mapper and overlap pixel draws from a generator on
@@ -94,7 +95,7 @@ from .mapper import (
     schedule_arrays,
     stack_draws,
 )
-from .programs import Programs
+from .programs import Programs, resolve_capture
 from .state import (
     add_keyframe,
     init_state,
@@ -140,15 +141,7 @@ class NiceSLAM:
             main = self.device.index if self.device.index is not None else torch.cuda.current_device()
             self.devices += [torch.device("cuda", i)
                              for i in range(torch.cuda.device_count()) if i != main]
-        on_cards = all(d.type == "cuda" for d in self.devices)
-        if capture is None:
-            capture = on_cards
-        elif capture and not on_cards:
-            raise ValueError(
-                f"capture=True needs CUDA devices, got {[str(d) for d in self.devices]}: "
-                "CUDA graphs run on a card, the CPU runs the programs eagerly"
-            )
-        self._programs = Programs(capture)
+        self._programs = Programs(resolve_capture(capture, self.devices))
         if cfg.sync_method not in ("strict", "async"):
             raise ValueError(f"unknown sync_method {cfg.sync_method!r}")
         if cfg.tracking.method not in ("gn", "adam"):
@@ -466,8 +459,8 @@ class NiceSLAM:
             self._kf_count += 1
         self.state.version += 1
         if m.keyframe_selection_method == "overlap" and self._kf_count > 1:
-            i, j = draw_pixels(self.gen, self.intr, 100, device=self.device)
-            self._overlap_pct = HostCopy(kf_mod.keyframe_overlap_percentages(
+            i, j = draw_pixels(self.gen, self.intr, kf_mod.OVERLAP_PIXELS, device=self.device)
+            self._overlap_pct = HostCopy(self._programs.overlap_percentages(
                 self.intr, self._tensor(self.est_c2w[-1]), frame.depth,
                 frame.color, self.state.keyframes.est_c2w, i, j,
             ))
@@ -539,7 +532,10 @@ class NiceSLAM:
         colors and depths, identity poses, every window slot valid and
         fixed, all-ones masks and pixel (0, 0) of slot 0: nothing is drawn
         from ``self.gen``, so a run's trajectory is the same with or without
-        this. A signature met later (the first pass with decoders trained by
+        this. The keyframe programs too: the overlap over the keyframe
+        capacity (with ``keyframe_selection_method: overlap``) and the frustum
+        masks of every window size a pass with frustum feature selection
+        meets. A signature met later (the first pass with decoders trained by
         ``mapping.decoder_train: init``) is captured when it is met. With a
         multi-rank runtime attached, passes run eagerly: nothing to do."""
         if self._runtime is not None:
@@ -561,7 +557,12 @@ class NiceSLAM:
                           torch.zeros((self.tcfg.iters, 2, self.tcfg.pixels),
                                       dtype=torch.long, device=dev))
         st = self.state
-        for F, refine, ba in self._precompile_signatures():
+        sigs = self._precompile_signatures()
+        self._programs.warm_keyframe_programs(
+            self.intr, self._bounds_host, st.grids, st.keyframes.est_c2w,
+            sorted({F for F, refine, _ in sigs if m.frustum_feature_selection and not refine}),
+            m.keyframe_selection_method == "overlap")
+        for F, refine, ba in sigs:
             mcfg = self._make_mcfg(ba, refine, 1.0)
             pcfg = self._make_pcfg(mcfg)
             ratios = (0.0, 0.0) if refine else (m.middle_iter_ratio, m.fine_iter_ratio)
@@ -644,7 +645,7 @@ class NiceSLAM:
         )
         grids = self.state.grids
         if mcfg.frustum_feature_selection:
-            masks = kf_mod.frustum_masks_for_levels(
+            masks = self._programs.frustum_masks(
                 poses44, to_device(valid, self.device), depths,
                 self.intr, self._bounds_host, grids,
             )

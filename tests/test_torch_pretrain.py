@@ -7,7 +7,9 @@ so this file restates it in JAX (lines cited below) with the point sets as
 inputs, on the JAX package's ``nice_forward`` (its default sampler route, as
 the script runs) and ``optax``. Tolerances: losses 1e-5 relative, gradients
 2e-5 of each leaf's largest entry (the fp32 sums of the two packages round
-differently); after Adam steps, see :func:`test_replay_matches_jax`.
+differently); after Adam steps, see :func:`test_replay_matches_jax`. The
+step's program over static buffers equals the host loop it replaced bit for
+bit (:func:`test_program_equals_the_host_loop`).
 """
 import json
 import os
@@ -29,12 +31,13 @@ from niceslam_tpu.models.pretrained import save_decoders_npz as jsave_npz
 from niceslam_tpu_torch import convert
 from niceslam_tpu_torch import pretrain_decoders as pd
 from niceslam_tpu_torch.grid.hierarchy import init_grids
-from niceslam_tpu_torch.models.decoders import init_decoders, tree_leaves
+from niceslam_tpu_torch.models.decoders import init_decoders, tree_leaves, tree_map
 from niceslam_tpu_torch.models.pretrained import (
     _flatten_with_keys,
     load_decoders_npz,
     save_decoders_npz,
 )
+from niceslam_tpu_torch.slam import mapper, programs
 
 torch.set_num_threads(1)
 
@@ -406,3 +409,73 @@ def test_step_launches_match_the_smoke_count(monkeypatch):
     want_k1, want_k2 = smoke.pretrain_expected_launches(4096, 1)
     assert (k1, k2) == (want_k1, want_k2)
     assert (sum(k1.values()), sum(k2.values())) == (11, 7)
+
+
+# ---------------------------------------------------------------- (f)
+def _loop_train_scene(decoders, grids, geom, grid_bounds, cfg, gen=None, batches=None):
+    """``train_scene`` as it was before its program: one host loop, the bias
+    corrections indexed with the step's Python int, the losses in a list."""
+    leaves = pd.trainable_leaves(decoders, grids)
+    n_dec = len(leaves) - len(grids)
+    lrs = [cfg.decoders_lr] * n_dec + [cfg.grids_lr] * len(grids)
+    mu = [torch.zeros_like(p) for p in leaves]
+    nu = [torch.zeros_like(p) for p in leaves]
+    c1, c2 = mapper.bias_corrections(cfg.steps, "cpu")
+    losses, aux = [], {}
+    for step in range(cfg.steps):
+        batch = (batches[step] if batches is not None
+                 else pd.draw_batch(gen, geom, grid_bounds, cfg.batch))
+        total, aux, grads = pd.loss_and_grads(decoders, grids, batch, geom, grid_bounds, cfg)
+        with torch.no_grad():
+            for p, g, m, v, lr in zip(leaves, grads, mu, nu, lrs):
+                mapper.adam_moments_(m, v, g)
+                p.sub_(lr * mapper.adam_direction(m, v, c1[step], c2[step]))
+        losses.append(total.detach())
+    return torch.stack(losses), {k: t.detach() for k, t in aux.items()}
+
+
+@pytest.mark.parametrize("draws", ["generator", "batches"])
+def test_program_equals_the_host_loop(draws):
+    """Three scenes on envelopes 0, 1 and 0 again (its program's buffers
+    reused, the moments zeroed anew) x 3 steps at batch 64, with the
+    decoders carried across: the program over static buffers (capture off)
+    equals the host loop it replaced in every loss, term, decoder leaf and
+    grid, bit for bit, with draws from one generator per path or the same
+    injected batches."""
+    cfg = pd.PretrainConfig(steps=3, batch=64)
+    progs = programs.Programs(capture=False)
+    rng = np.random.default_rng(4)
+    dec0 = init_decoders(gen=torch.Generator().manual_seed(1), device="cpu")
+    decs = [pd.trainable(dec0), pd.trainable(tree_map(torch.clone, dec0))]
+    gens = [torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)]
+    for s, bi in enumerate((0, 1, 0)):
+        grids, bounds, adj = init_grids(np.asarray(pd.BOUND_SET[bi], np.float32),
+                                        gen=torch.Generator().manual_seed(100 + s), device="cpu")
+        geom = {k: torch.from_numpy(v) for k, v in pd.scene_geometry(rng, adj).items()}
+        batches = None
+        if draws == "batches":
+            batches = [pd.draw_batch(torch.Generator().manual_seed(20 + 3 * s + k), geom, bounds,
+                                     cfg.batch) for k in range(cfg.steps)]
+        both = [pd.trainable(tree_map(torch.clone, grids)) for _ in range(2)]
+        got = pd.train_scene(decs[0], both[0], geom, bounds, cfg, gens[0], batches,
+                             programs=progs)
+        want = _loop_train_scene(decs[1], both[1], geom, bounds, cfg, gens[1], batches)
+        assert bool(torch.isfinite(got[0]).all()) and torch.equal(got[0], want[0]), s
+        assert set(got[1]) == set(want[1]) and all(torch.equal(got[1][k], want[1][k])
+                                                   for k in want[1]), s
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(decs[0]), tree_leaves(decs[1])))
+        assert all(torch.equal(both[0][k], both[1][k]) for k in grids), s
+        assert not torch.equal(both[0]["fine"], grids["fine"])  # stepped in place
+    assert len(progs.pretraining) == 2 and not progs.captures
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+def test_capture_needs_a_card():
+    grids, bounds, adj = init_grids(np.asarray(pd.BOUND_SET[0], np.float32), device="cpu")
+    geom = {k: torch.from_numpy(v) for k, v in
+            pd.scene_geometry(np.random.default_rng(0), adj).items()}
+    with pytest.raises(ValueError, match="capture=True needs CUDA devices"):
+        pd.train_scene(pd.trainable(init_decoders(device="cpu")), pd.trainable(grids), geom,
+                       bounds, CFG, torch.Generator(), capture=True)
+    with pytest.raises(ValueError, match="capture=True needs CUDA devices"):
+        pd.pretrain(pd.PretrainConfig(scenes=1, steps=1, batch=64), "cpu", capture=True)

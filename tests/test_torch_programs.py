@@ -8,7 +8,11 @@ as CUDA graphs.
 - The static-buffer runners equal fresh passes and solves bit for bit over
   consecutive events with other inputs, and never hand out their buffers.
 - The signatures that ``NiceSLAM.precompile`` makes are the JAX package's,
-  and it draws nothing from the system's generator.
+  with the keyframe programs, and it draws nothing from the system's
+  generator.
+- The stateless programs (keyframe overlap, frustum masks, ``render_image``'s
+  chunk, the mesher's chunk) equal the eager functions bit for bit over
+  calls with other inputs, and never hand out their buffers.
 - Launches counted at a capture are added once per replay.
 """
 import os
@@ -20,10 +24,14 @@ import torch
 
 from niceslam_tpu.slam.system import NiceSLAM as JNiceSLAM
 from niceslam_tpu_torch.config.schema import load_config
+from niceslam_tpu_torch.core import rays as rays_mod
 from niceslam_tpu_torch.core.pose import tensor_from_camera
-from niceslam_tpu_torch.models.decoders import tree_leaves, tree_map
+from niceslam_tpu_torch.eval import mesher
+from niceslam_tpu_torch.models.decoders import nice_forward, tree_leaves, tree_map
 from niceslam_tpu_torch.ops import packed_kernels as pk
 from niceslam_tpu_torch.ops import trilerp_kernels as tk
+from niceslam_tpu_torch.render.renderer import render_image, render_rays
+from niceslam_tpu_torch.slam import keyframes as kf_mod
 from niceslam_tpu_torch.slam import mapper, programs
 from niceslam_tpu_torch.slam.system import NiceSLAM
 from niceslam_tpu_torch.slam.tracker import TrackConfig, track_frame
@@ -274,6 +282,13 @@ def test_precompile_makes_the_jax_signatures_and_draws_nothing(ba, refine):
     assert torch.equal(slam.gen.get_state(), state)
     assert sorted(p.signature for p in slam._programs.mapping.values()) == sorted(sigs)
     assert len(slam._programs.tracking) == 1 and not slam._programs.captures
+    # The overlap over the keyframe capacity, the frustum masks per window
+    # size of the passes that select features (refinement does not).
+    static = sorted((k[0].split()[0], k[4][0][0]) for k in slam._programs.static)
+    K = slam.state.keyframes.capacity
+    assert static == [("frustum_masks", (m.mapping_window_size, 4, 4)),
+                      ("keyframe_overlap", (4, 4))]
+    assert any(k[0] == f"keyframe_overlap K={K}" for k in slam._programs.static)
 
 
 def test_precompile_leaves_the_trajectory_as_it_was():
@@ -339,3 +354,114 @@ def test_replays_add_the_launches_their_capture_counted():
         assert pk.LAUNCHES == {"corner_table": 0, "gather_rows": 7, "scatter_corners": 0}
     finally:
         programs.restore_counts(saved)
+
+
+# ---------------------------------------------------------------- (f)
+def _static_buffers(progs):
+    return [t.data_ptr() for p in progs.static.values()
+            for t in tree_leaves((p.fixed, p.args, p.out))]
+
+
+def test_keyframe_programs_equal_the_eager_functions(world):
+    """Two mapping events' overlap and frustum masks (other poses, depths,
+    validity and pixels) through one system's programs equal the eager
+    functions bit for bit; their results are new tensors."""
+    slam, frames = world
+    progs = programs.Programs(capture=False)
+    rng = np.random.default_rng(6)
+    wide = rays_mod.Intrinsics(H=96, W=128, fx=96.0, fy=96.0, cx=64.0, cy=48.0)
+    kf = torch.from_numpy(np.stack([frames[k % 4].gt_c2w for k in range(
+        slam.state.keyframes.capacity)]).astype(np.float32))
+    kept = []
+    for order, valid in (([0, 1, 2, 3], [1, 1, 1, 0]), ([3, 1, 0, 2], [1, 0, 1, 1])):
+        _, depths, _, valid, _ = _window(slam, frames, order, valid, [0] * 4)
+        poses = torch.from_numpy(np.stack([frames[k].gt_c2w for k in order]).astype(np.float32))
+        valid = torch.from_numpy(valid)
+        want = kf_mod.frustum_masks_for_levels(poses, valid, depths, slam.intr,
+                                               slam._bounds_host, slam.state.grids)
+        got = progs.frustum_masks(poses, valid, depths, slam.intr, slam._bounds_host,
+                                  slam.state.grids)
+        assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+        assert any(0 < float(m.sum()) < m.numel() for m in got.values())
+        # The overlap on a 96 x 128 image: the tiny world's is inside the
+        # 20-pixel edge that the score leaves out.
+        depth = torch.from_numpy(rng.uniform(0.5, 3.0, (wide.H, wide.W)).astype(np.float32))
+        depth[:8] = 0.0
+        color = torch.from_numpy(rng.uniform(size=(wide.H, wide.W, 3)).astype(np.float32))
+        i = torch.from_numpy(rng.integers(0, wide.W, kf_mod.OVERLAP_PIXELS))
+        j = torch.from_numpy(rng.integers(0, wide.H, kf_mod.OVERLAP_PIXELS))
+        want_pct = kf_mod.keyframe_overlap_percentages(wide, poses[0], depth, color, kf, i, j)
+        got_pct = progs.overlap_percentages(wide, poses[0], depth, color, kf, i, j)
+        assert torch.equal(got_pct, want_pct) and float(got_pct.max()) > 0
+        kept.append((got, got_pct, tree_map(torch.clone, (got, got_pct))))
+    assert len(progs.static) == 2
+    ptrs = set(_static_buffers(progs))
+    assert not any(t.data_ptr() in ptrs for t in tree_leaves([k[:2] for k in kept]))
+    assert _equal_trees(kept[0][:2], kept[0][2])
+
+
+@pytest.mark.parametrize("with_depth", [True, False])
+def test_render_program_equals_the_chunk_loop(world, with_depth):
+    """``render_image`` (its chunk program, capture off) equals the loop of
+    ``render_rays`` over row chunks it replaced, bit for bit, at H = 24 in
+    chunks of 5 rows (padded), for two poses and maps through one program."""
+    slam, frames = world
+    progs = programs.Programs(capture=False)
+    grids = slam.state.grids
+    for k in (1, 2):
+        c2w = torch.from_numpy(frames[k].gt_c2w.astype(np.float32))
+        depth = torch.from_numpy(frames[k].depth) if with_depth else None
+        args = (slam.state.decoders, grids, slam.bounds, slam.scene_bound, slam.intr, c2w,
+                depth, "color", slam.rcfg, 5)
+        got = render_image(*args, programs=progs)
+        want = _loop_render_image(*args)
+        for name in ("rgb", "depth", "depth_var", "weights"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert float(got.depth.max()) > 0
+        grids = {lvl: g + 0.01 for lvl, g in grids.items()}
+    assert len(progs.static) == 1
+    with pytest.raises(ValueError, match="perturb"):
+        render_image(*args[:8], slam.rcfg._replace(perturb=1.0), programs=progs)
+
+
+def _loop_render_image(params, grids, bounds, scene_bound, intr, c2w, gt_depth, stage, cfg,
+                       rows):
+    """``render_image`` as it was before its program: ``render_rays`` on
+    each row chunk of the padded image, then cropped."""
+    H, W = intr.H, intr.W
+    pad, n = (-H) % rows, rows * W
+    with torch.no_grad():
+        ro, rd = rays_mod.rays_for_image(intr, c2w)
+        ro = torch.cat([ro, ro[-1:].expand(pad, W, 3)], 0).reshape(-1, n, 3)
+        rd = torch.cat([rd, rd[-1:].expand(pad, W, 3)], 0).reshape(-1, n, 3)
+        gd = (None if gt_depth is None
+              else torch.cat([gt_depth, gt_depth[-1:].expand(pad, W)], 0).reshape(-1, n))
+        outs = [render_rays(params, grids, bounds, scene_bound, ro[k], rd[k],
+                            None if gd is None else gd[k], stage, cfg)
+                for k in range(ro.shape[0])]
+    cat = lambda name, *shape: torch.cat([getattr(o, name) for o in outs]).reshape(  # noqa: E731
+        H + pad, W, *shape)[:H]
+    return types.SimpleNamespace(rgb=cat("rgb", 3), depth=cat("depth"),
+                                 depth_var=cat("depth_var"), weights=cat("weights", -1))
+
+
+def test_mesher_programs_equal_the_chunk_loop(world):
+    """The occupancy query (fine stage) and the vertex colours (color
+    stage) through their chunk programs (capture off) equal ``nice_forward``
+    over the same padded chunks, bit for bit, on two maps."""
+    slam, _ = world
+    progs = programs.Programs(capture=False)
+    grids = slam.state.grids
+    pts = mesher.lattice_points(slam.scene_bound, 12).reshape(-1, 3)  # 1728 points
+    for _ in range(2):
+        for stage, output, cols in (("fine", "occupancy", 3), ("color", "rgb", slice(0, 3))):
+            got = mesher.query_chunks(slam.state.decoders, grids, slam.bounds, pts, 500,
+                                       stage, output, programs=progs)
+            flat = torch.from_numpy(np.concatenate([pts, np.zeros((272, 3), np.float32)]))
+            with torch.no_grad():
+                want = torch.cat([nice_forward(slam.state.decoders, grids, flat[i:i + 500],
+                                               slam.bounds, stage)[:, cols]
+                                  for i in range(0, 2000, 500)]).numpy()[:len(pts)]
+            assert got.shape == want.shape and np.array_equal(got, want), stage
+        grids = {lvl: g + 0.01 for lvl, g in grids.items()}
+    assert len(progs.static) == 2
