@@ -15,7 +15,10 @@ prints no result):
    packed) at the main path's shapes against its plain PyTorch version on
    the same card tensors, with the max error, the median device time (CUDA
    events), the plain version's time, the time of one PyTorch library call
-   computing the same function where there is one, and the bound computed
+   computing the same function where there is one (the kernel and the call
+   timed in 15 alternating rounds: both medians and both spreads, and for
+   K4 the verdict whether it loses to ``index_select`` by more than the
+   two spreads), and the bound computed
    from bytes and operations; on uniform random points, and K1, K2 and K5
    again on the points of one mapping batch (frame 0 of the synthetic
    scene at its true pose: stratified and surface samples, which crowd
@@ -50,13 +53,18 @@ prints no result):
    and poses bit for bit: one seed is one trajectory on the card. On the
    packed run's frame-0 map both routes' ``sample_grid`` values and grid
    gradients are compared on all four levels at a mapping batch's points.
-5. mesher: ``extract_mesh`` at resolution 128 (2,097,152 query points) on
-   the packed run's final map under each route, timed once, and one query
+5. mesher and a panel: ``extract_mesh`` at resolution 128 (2,097,152
+   query points) on the fused run's final map (after its traced frames)
+   under each route, timed once, and one query
    of the occupancy field per route, the two fields compared; under each
    route the query, ``extract_mesh`` and the vertex colours' query graphed
    against eager, bit for bit and with the same launches, the seconds of
    each; then ``postprocess_mesh`` and ``write_ply`` to a temporary
-   directory.
+   directory; then one panel's ``render_image`` (the last frame, 640x480)
+   graphed against eager, bit for bit. The process's graph pool is read
+   after the fused main path, the meshes and the panel: one system's
+   graphs with a mesh and a panel, as a command line with ``--mesh`` and
+   ``--vis-dir`` holds them.
 6. Adam (after the fused run of phase 4): one frame's Adam solve with
    ``configs/cofusion.yaml``'s tracking on that run's frame-0 map, on the
    card and on the CPU with the same injected pixels (poses within 1e-4);
@@ -149,7 +157,10 @@ prints no result):
 
 Phases 4, 7, 8, 9, 10, 11 (b) and 12 run graphed, as ``NiceSLAM``,
 ``render_image``, the mesher and ``pretrain_decoders`` do on a card; phase
-11's ranks run eagerly.
+11's ranks run eagerly. Every graph of the card, whichever object holds
+it, lies in the card's one pool (``slam/programs.py``): the process's pool
+is read where each phase ends (after the main path, the meshes of phase 5
+and the panel of phase 10 among them) and summed up in one line.
 
 ``--profile`` adds a phase after the fused main path: two more every_frame
 groups, the first timed, the second under ``torch.profiler``, for the
@@ -284,6 +295,43 @@ def device_ms(fn, reps: int = 50, rounds: int = 7) -> float:
     return statistics.median(times)
 
 
+def paired_ms(fn, lib, reps: int = 50, rounds: int = 15) -> dict:
+    """A kernel ``fn`` and the library call ``lib`` that computes the same
+    function, timed alternately on the same inputs: ``rounds`` rounds, each
+    one batch of ``reps`` calls of either (the one first in even rounds,
+    the other in odd ones), behind a spin kernel as in :func:`device_ms`.
+    Returns the median ms of one call of each and their spreads (min and
+    max over the rounds)."""
+    for _ in range(3):
+        fn()
+        lib()
+    torch.cuda.synchronize()
+    times = {"ms": [], "library_ms": []}
+    for r in range(rounds):
+        order = (("ms", fn), ("library_ms", lib)) if r % 2 == 0 else (
+            ("library_ms", lib), ("ms", fn))
+        for key, f in order:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)
+            a.record()
+            for _ in range(reps):
+                f()
+            b.record()
+            b.synchronize()
+            times[key].append(a.elapsed_time(b) / reps)
+    out = {}
+    for key, ts in times.items():
+        out[key] = statistics.median(ts)
+        out[f"{key}_spread"] = (min(ts), max(ts))
+    return out
+
+
+def spread(r: dict, key: str) -> str:
+    lo, hi = r[f"{key}_spread"]
+    return f"{key} {r[key]:.4f} [{lo:.4f}-{hi:.4f}]"
+
+
 def bound_ms(nbytes: float, nops: float):
     """The least time for ``nbytes`` moved and ``nops`` fp32 operations on
     this card, from the published peaks of ``utils/roofline.py`` (which
@@ -294,6 +342,21 @@ def bound_ms(nbytes: float, nops: float):
     t_bytes = nbytes / (peaks.hbm_gbps * 1e9)
     t_ops = nops / peaks.flops_f32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+POOL_READINGS = {}
+
+
+def log_pool(where: str):
+    """The process's graph pool where a phase ends (every card's pool,
+    shared by every graph on it: ``slam/programs.pool_bytes``), in MiB,
+    kept for the summary line."""
+    from niceslam_tpu_torch.slam.programs import pool_bytes
+
+    gc.collect()
+    POOL_READINGS[where] = round(pool_bytes() / 2**20, 1)
+    log(f"graph pool after {where}: {POOL_READINGS[where]:.1f} MiB reserved "
+        f"(all memory reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB)")
 
 
 def start_peak(tag: str):
@@ -559,19 +622,20 @@ def k1_rows(tk, case):
             if rc != 1:  # cudaErrorInvalidValue
                 raise AssertionError(f"trilerp_fwd[{name}]: the vector variant on "
                                      f"misaligned pointers returned {rc}, not refused")
-        ms = device_ms(lambda: tk.trilerp_fwd(grid, v, deriv=deriv))
+        kern = lambda: tk.trilerp_fwd(grid, v, deriv=deriv)  # noqa: E731
+        times = (dict(ms=device_ms(kern), library_ms=None) if deriv
+                 else paired_ms(kern, lib_fwd))
         plain = device_ms(lambda: tk.trilerp_fwd_plain(grid, v, deriv=deriv), reps=10)
-        libt = None if deriv else device_ms(lib_fwd)
         nbytes = 4 * (touched * C + 3 * n + n * C + (3 * n * C if deriv else 0))
         nops = n * C * (FWD_OPS + (DERIV_OPS if deriv else 0))
         bms, by = bound_ms(nbytes, nops)
         corner_bytes = 8 * n * C * 4
         rows.append(dict(name="trilerp_fwd", case=f"{name} deriv={int(deriv)}",
-                         points=case["points"], max_abs_err=err, ms=ms, plain_ms=plain,
-                         library_ms=libt, bound_ms=bms, bound_by=by,
+                         points=case["points"], max_abs_err=err, plain_ms=plain, **times,
+                         bound_ms=bms, bound_by=by,
                          extra=f"{variant} G={G}, {touched} rows touched, corner rows "
                                f"{corner_bytes / 1e6:.1f} MB at "
-                               f"{corner_bytes / (ms * 1e-3) / 1e12:.2f} TB/s"))
+                               f"{corner_bytes / (times['ms'] * 1e-3) / 1e12:.2f} TB/s"))
     return rows
 
 
@@ -619,25 +683,45 @@ def phase_kernels(cfg):
         check_model(f"trilerp_bwd[{name}] dgrid", dgrid, model)
         check_order_independent(f"trilerp_bwd[{name}] dgrid", pdgrid, dgrid)
         err = max(max_err(dgrid, rdgrid), max_err(dv, rdv))
-        ms = device_ms(lambda: tk.trilerp_bwd(grid, v, g))
+        times = paired_ms(lambda: tk.trilerp_bwd(grid, v, g), lib_bwd)
         plain = device_ms(lambda: tk.trilerp_bwd_plain(grid, v, g), reps=10)
-        libt = device_ms(lib_bwd)
         nbytes = 4 * (R * C + 3 * n + n * C + R * C + 3 * n)
         nops = n * C * (FWD_OPS + DERIV_OPS + BWD_OPS)
         bms, by = bound_ms(nbytes, nops)
-        row("trilerp_bwd", max_abs_err=err, ms=ms, plain_ms=plain, library_ms=libt,
-            bound_ms=bms, bound_by=by)
+        row("trilerp_bwd", max_abs_err=err, plain_ms=plain, **times, bound_ms=bms, bound_by=by)
         rows += packed_kernel_rows(pk, fp, case, with_table=uniform)
     rows += k2_dgrid_only_rows(tk, fp)
     log("library_ms of corner_table: null, no single PyTorch call builds the "
         "packed table (the plain version is six concatenations)")
     for r in rows:
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"kernel {r['name']:<15} {r['case']:<34} max_abs_err {r['max_abs_err']:.3e}  "
-            f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms {lib}  "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
-            + (f"  [{r['extra']}]" if "extra" in r else ""))
+        log_kernel_row(r)
+    for r in rows:
+        if r["name"] == "gather_rows":
+            log_verdict(r)
     return rows
+
+
+def log_kernel_row(r: dict):
+    """A kernel row; where it has a library call, both times are the
+    medians of alternating rounds with their spreads."""
+    if r["library_ms"] is None:
+        times = f"ms {r['ms']:.4f}  library_ms n/a"
+    else:
+        times = f"{spread(r, 'ms')}  {spread(r, 'library_ms')} (alternating)"
+    log(f"kernel {r['name']:<15} {r['case']:<34} max_abs_err {r['max_abs_err']:.3e}  "
+        f"{times}  plain_ms {r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']})" + (f"  [{r['extra']}]" if "extra" in r else ""))
+
+
+def log_verdict(r: dict):
+    """Whether a kernel loses to its library call: by more than the two
+    spreads (the width of each one's rounds) together."""
+    (lo, hi), (llo, lhi) = r["ms_spread"], r["library_ms_spread"]
+    margin = (hi - lo) + (lhi - llo)
+    gap = r["ms"] - r["library_ms"]
+    verdict = "loses" if gap > margin else "does not lose"
+    log(f"verdict {r['name']} [{r['case']}]: kernel - library {gap:+.4f} ms against the "
+        f"spreads {margin:.4f} ms: {verdict}; at {r['bound_ms'] / r['ms']:.2f} of its bound")
 
 
 def pretrain_scene_on_card(bi: int, seed: int = 0):
@@ -700,10 +784,10 @@ def k2_dgrid_only_rows(tk, fp):
     return [dict(
         name="trilerp_bwd", case=name, points="pretraining",
         max_abs_err=max_err(dgrid, rdgrid),
-        ms=device_ms(lambda: tk.trilerp_bwd(grid, v, g, need_dv=False)),
+        **paired_ms(lambda: tk.trilerp_bwd(grid, v, g, need_dv=False),
+                    lambda: torch.ops.aten.grid_sampler_3d_backward(
+                        lib_gout, vol, nrm, 0, 1, True, [True, False])),
         plain_ms=device_ms(lambda: tk.trilerp_bwd_plain(grid, v, g, need_dv=False), reps=10),
-        library_ms=device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
-            lib_gout, vol, nrm, 0, 1, True, [True, False])),
         bound_ms=bms, bound_by=by)]
 
 
@@ -750,9 +834,9 @@ def packed_kernel_rows(pk, fp, case, with_table=True):
                                  f"version (max abs err {max_err(rows, ref):.3e})")
         bms, by = bound_ms(4 * (2 * n * 8 * C + n), 0)
         row("gather_rows", max_abs_err=max_err(rows, ref),
-            ms=device_ms(lambda: pk.gather_rows(table, start)),
+            **paired_ms(lambda: pk.gather_rows(table, start),
+                        lambda: torch.index_select(table, 0, start)),
             plain_ms=device_ms(lambda: pk.gather_rows_plain(table, start), reps=10),
-            library_ms=device_ms(lambda: torch.index_select(table, 0, start)),
             bound_ms=bms, bound_by=by)
         del table, rows, lib
 
@@ -772,9 +856,9 @@ def packed_kernel_rows(pk, fp, case, with_table=True):
     check_close(f"index_add_[{name}] vs plain", lib_scatter(), ref, 1e-5, atol)
     bms, by = bound_ms(4 * (n * 8 * C + 4 * n + R * C), n * 8 * C)
     row("scatter_corners", max_abs_err=max_err(dflat, ref),
-        ms=device_ms(lambda: pk.scatter_corners(idx4, ct8, R)),
+        **paired_ms(lambda: pk.scatter_corners(idx4, ct8, R), lib_scatter),
         plain_ms=device_ms(lambda: pk.scatter_corners_plain(idx4, ct8, R), reps=10),
-        library_ms=device_ms(lib_scatter), bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=by)
     return out
 
 
@@ -1001,7 +1085,8 @@ def log_captures(tag: str, slam):
         log(f"{tag}: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
             f"launches per replay {c.launches}")
     if progs.capture:
-        log(f"{tag}: graph pool {progs.pool_bytes() / 2**20:.1f} MiB reserved")
+        log(f"{tag}: the card's graph pool (every graph of the process) "
+            f"{progs.pool_bytes() / 2**20:.1f} MiB reserved")
 
 
 KEYFRAME_PROGRAMS = ("keyframe_overlap", "frustum_masks")
@@ -1181,7 +1266,7 @@ def phase_mesher(slam, cfg, resolution: int = 128):
         if c.signature.startswith("mesher_chunk"):
             log(f"mesher: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
                 f"launches per replay {c.launches}")
-    log(f"mesher: process-wide graph pool {shared_programs('cuda').pool_bytes() / 2**20:.1f} "
+    log(f"mesher: the card's graph pool {shared_programs('cuda').pool_bytes() / 2**20:.1f} "
         f"MiB reserved")
     # Tolerance: 1e-4 of the field's scale. The routes' features differ by
     # rounding (K1 fuses the lerp into FMAs, the packed lerp runs op by op)
@@ -1209,6 +1294,35 @@ def phase_mesher(slam, cfg, resolution: int = 128):
             mesher.write_ply(path, *mesh)
             log(f"mesher: write_ply of the {name} mesh: {os.path.getsize(path)} bytes "
                 f"in {time.perf_counter() - t0:.3f} s")
+
+
+def phase_panel(slam, reader):
+    """One panel's render as the visualizer makes it (``render_image`` of
+    the map at the last pose, guided by that frame's depth) through the
+    process-wide programs, graphed against eager: bit for bit, with the
+    seconds of each (the graphed one with its capture)."""
+    from niceslam_tpu_torch.render.renderer import render_image
+    from niceslam_tpu_torch.slam.programs import Programs
+
+    k = len(slam.est_c2w) - 1
+    c2w = torch.as_tensor(slam.est_c2w[k], dtype=torch.float32, device="cuda")
+    depth = torch.as_tensor(reader[k].depth, dtype=torch.float32, device="cuda")
+    fields = ("rgb", "depth", "depth_var", "weights")
+    outs, secs = {}, {}
+    for way, progs in (("graphed", None), ("eager", Programs(capture=False))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_image(slam.state.decoders, slam.state.grids, slam.bounds, slam.scene_bound,
+                           slam.intr, c2w, depth, "color", slam.rcfg, programs=progs)
+        torch.cuda.synchronize()
+        outs[way], secs[way] = out, time.perf_counter() - t0
+    differ = [f for f in fields
+              if not torch.equal(getattr(outs["graphed"], f), getattr(outs["eager"], f))]
+    if differ or not bool(torch.isfinite(outs["graphed"].rgb).all()):
+        raise AssertionError(f"panel: graphed and eager differ in {differ}, or rgb not finite")
+    log(f"panel: render_image of frame {k} at {slam.intr.W}x{slam.intr.H}, graphed (with its "
+        f"capture) {secs['graphed']:.3f} s, eager {secs['eager']:.3f} s, equal bit for bit in "
+        f"{', '.join(fields)}")
 
 
 # ------------------------------------------------------------ phases 6-9
@@ -1354,16 +1468,14 @@ def phase_adam(run: dict, cfg):
         rows.append(dict(
             name="trilerp_bwd", case=f"{name} need_dgrid=0", points="tracking",
             max_abs_err=max_err(dv, rdv),
-            ms=device_ms(lambda: tk.trilerp_bwd(grid, v, g, need_dgrid=False)),
+            **paired_ms(lambda: tk.trilerp_bwd(grid, v, g, need_dgrid=False),
+                        lambda: torch.ops.aten.grid_sampler_3d_backward(
+                            lib_gout, vol, nrm, 0, 1, True, [False, True])),
             plain_ms=device_ms(lambda: tk.trilerp_bwd_plain(grid, v, g, need_dgrid=False),
                                reps=10),
-            library_ms=device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
-                lib_gout, vol, nrm, 0, 1, True, [False, True])),
             bound_ms=bms, bound_by=by, extra=f"{touched} rows touched"))
     for r in rows:
-        log(f"kernel {r['name']:<15} {r['case']:<48} max_abs_err {r['max_abs_err']:.3e}  "
-            f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f}"
-            f"  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  [{r['extra']}]")
+        log_kernel_row(r)
     return rows
 
 
@@ -2079,7 +2191,7 @@ def phase_real_data(frames: int = 6):
                 log(f"render: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
                     f"launches per replay {c.launches}")
         log(f"render: graphed and eager images equal bit for bit in {', '.join(fields)}; the "
-            f"32-row band on the CPU {t_cpu:.2f} s; process-wide graph pool "
+            f"32-row band on the CPU {t_cpu:.2f} s; the card's graph pool "
             f"{shared_programs('cuda').pool_bytes() / 2**20:.1f} MiB reserved")
         del slam, out
     return dt
@@ -2863,41 +2975,54 @@ def main():
         phase_card_vs_cpu(route)
     repeat = min(2, args.frames)
     runs = {"fused": phase_main_path(cfg, args.frames, keep=repeat)}
+    log_pool("the fused main path (phase 4)")
     fused_digest = digest(runs["fused"]["poses"], runs["fused"]["grids"])
     phase_repeat(cfg, runs["fused"], repeat)
     rows += phase_adam(runs["fused"], cfg)
     if args.profile:
         phase_profile(runs["fused"]["slam"], runs["fused"]["reader"], cfg.mapping.every_frame)
     graphed_busy = trace_busy(runs["fused"]["slam"], runs["fused"]["reader"], "graphs [fused]")
+    t0 = time.perf_counter()
+    phase_mesher(runs["fused"]["slam"], cfg)
+    log_pool("the meshes (phase 5)")
+    phase_panel(runs["fused"]["slam"], runs["fused"]["reader"])
+    log(f"mesher phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("a panel (phase 5)")
     del runs["fused"]["slam"]  # the later runs' peak memory is their own
     async_run = phase_async(cfg, runs["fused"])
+    log_pool("the async main path (phase 7)")
     runs["packed"] = phase_main_path(cfg, args.frames, route="packed")
+    log_pool("the packed main path (phase 4)")
     for route, run in runs.items():
         log(f"routes: [{route}] frame seconds {[round(d, 4) for d in run['dts']]}, "
             f"after frame 0 {sum(run['dts'][1:]):.3f} s, peak device memory "
             f"{run['peak_bytes'] / 2**20:.1f} MiB, ATE {run['ate_cm']:.4f} cm")
-    t0 = time.perf_counter()
-    phase_mesher(runs["packed"]["slam"], cfg)
-    log(f"mesher phase: {time.perf_counter() - t0:.1f} s")
     del runs["packed"]["slam"]
     t0 = time.perf_counter()
     phase_async_fault(cfg, args.frames, min(args.iters_first, 100))
     log(f"async fault phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the async fault run (phase 8)")
     t0 = time.perf_counter()
     phase_cli()
     log(f"cli phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the command line (phase 9)")
     t0 = time.perf_counter()
     phase_real_data()
     log(f"real data phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the panel (phase 10)")
     t0 = time.perf_counter()
     phase_multi(cfg, runs["fused"], fused_digest)
     log(f"multi phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the roles (phase 11)")
     t0 = time.perf_counter()
     phase_pretrain()
     log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("pretraining (phase 12)")
     t0 = time.perf_counter()
     phase_graphs(cfg, runs, async_run, graphed_busy)
     log(f"graphs phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the eager runs (phase 13)")
+    log(f"graph pool of the process where each phase ended (MiB): {json.dumps(POOL_READINGS)}")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]
     log(f"ATE per seed (cm), fused route: {[round(a, 4) for a in ates]}, "

@@ -142,8 +142,12 @@ class GridLenConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Multi-device layout. This package runs one device: ``NiceSLAM``
-    refuses any value but the defaults (ROADMAP, the multi-device slice)."""
+    """Multi-device layout. ``n_processes`` ranks (processes, one per card,
+    over ``torch.distributed`` at ``coordinator``) form a ``map`` x ``kf``
+    mesh (``kf`` 0: the ranks over ``map``) that shards the grids along Z
+    and the mapping rays (``parallel/``). Without ranks, ``track_role`` and
+    ``stage_ep`` put tracking and the coarse stage on devices of their own
+    (the last and the second of ``NiceSLAM(devices=...)``)."""
 
     n_processes: int = 1
     coordinator: str = "localhost:9991"
@@ -261,14 +265,21 @@ def _apply_overrides(data: Dict[str, Any], overrides: Dict[str, Any]):
     return data
 
 
-def _load_chain(p: Path) -> Dict[str, Any]:
+def _load_chain(p: Path, seen: Tuple[Path, ...] = ()) -> Dict[str, Any]:
     """A config file with its ``inherit_from`` chain resolved, recursively
-    (``cofusion_synth849.yaml`` -> ``cofusion.yaml`` -> ``niceslam.yaml``)."""
+    (``cofusion_synth849.yaml`` -> ``cofusion.yaml`` -> ``niceslam.yaml``),
+    each file over its parent. ``seen`` holds the files that led here: a
+    file that inherits from one of them raises ``ValueError`` naming the
+    cycle."""
+    key = Path(p).resolve()
+    if key in seen:
+        chain = " -> ".join(str(q) for q in (*seen[seen.index(key):], key))
+        raise ValueError(f"inherit_from cycle: {chain}")
     with open(p) as f:
         d = yaml.safe_load(f) or {}
     parent = d.pop("inherit_from", None)
     if parent is not None:
-        d = _deep_merge(_load_chain(Path(p).parent / parent), d)
+        d = _deep_merge(_load_chain(Path(p).parent / parent, (*seen, key)), d)
     return d
 
 
@@ -279,8 +290,11 @@ def load_config(
 ) -> SLAMConfig:
     """Load a dataset config, overlaying it on a base algorithm config.
 
-    ``path`` may declare ``inherit_from: <relative path>``; explicit ``base``
-    wins over that. Overrides use dotted paths: ``{"tracking.lr": 0.01}``.
+    The layers, lowest first: ``base`` (with its own ``inherit_from``
+    chain), the ``inherit_from`` chain of ``path`` (``path: <relative
+    path>``, each file over its parent), ``path`` itself, then
+    ``overrides`` in dotted paths (``{"tracking.lr": 0.01}``). A cyclic
+    ``inherit_from`` raises ``ValueError`` naming the files.
     """
     data: Dict[str, Any] = {}
     if path is not None:

@@ -303,13 +303,19 @@ class PretrainProgram:
             torch._foreach_zero_(self.mu + self.nu)
             self.counter.zero_()
 
+    def buffers(self) -> List[torch.Tensor]:
+        """What a step writes: the leaves, the moments, the losses, the
+        counter and (once the first step made them) the terms."""
+        aux = [] if self.aux is None else list(self.aux.values())
+        return [*self.leaves, *self.mu, *self.nu, self.losses, self.counter, *aux]
+
     def _graph(self):
         if self.graph is None:
             self.graph = self.programs.capture_graph(
                 self.device,
                 f"pretrain step batch={self.cfg.batch} fine={tuple(self.grids['fine'].shape)} "
                 f"route={get_sampler_route()} {self.device}",
-                self.step, [*self.leaves, *self.mu, *self.nu, self.losses, self.counter])
+                self.step, self.buffers)
         return self.graph
 
     def warm(self, decoders, grids, geom, grid_bounds) -> None:

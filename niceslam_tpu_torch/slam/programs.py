@@ -42,12 +42,23 @@ graphs live in the process-wide programs of :func:`shared_programs`, one per
 capture mode, keyed on the device like every program.
 
 - A graph is captured at its first use, or ahead of it (``warm``, from
-  ``NiceSLAM.precompile`` and ``pretrain``): one warm-up call on a side
-  stream, whose effects on the buffers are undone, then the capture, in
-  ``thread_local`` mode so that the frame prefetcher's thread may pin host
-  memory meanwhile. A capture waits for the device. The graphs of a device
-  share one memory pool: they never run at the same time, and each writes
-  only buffers allocated outside the pool.
+  ``NiceSLAM.precompile`` and ``pretrain``): one warm-up call on the card's
+  capture stream, whose effects on the buffers are undone, then the
+  capture, in ``thread_local`` mode so that the frame prefetcher's thread
+  may pin host memory meanwhile. A capture waits for the device.
+- Every graph of a card, whichever ``Programs`` holds it, captures on one
+  stream into one memory pool (:func:`card_graphs`), so a capture reuses
+  the free blocks that earlier captures left instead of reserving a pool
+  of its own. That is safe because the graphs of a card never run at the
+  same time (one thread replays them, on one stream) and because **no
+  graph's output lies in the pool**: every tensor a call writes (its
+  ``buffers()``) exists before the capture, made at the program's
+  construction or by the warm-up call, outside the pool. A capture that
+  would make one raises. The pool lives while any of its graphs does;
+  :func:`pool_bytes` reads it. A capture reuses a free block only where
+  one is at least as large as its request (the allocator never joins two
+  segments), so graphs with small buffers captured before one with large
+  ones still add to it.
 - A replay runs no Python, so the kernels' launch counters
   (``ops/trilerp_kernels.COUNTERS``, ``ops/packed_kernels.COUNTERS``) get
   each graph's launches, as its capture counted them, once per replay; the
@@ -59,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import time
+import weakref
 from collections import Counter
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -88,6 +100,7 @@ from .tracker import TrackConfig, new_solve_state, solve_result, start_solve, tr
 _COUNTERS = (trilerp_kernels.COUNTERS, packed_kernels.COUNTERS)
 _LIBCUDA = None
 _SHARED: Dict[bool, "Programs"] = {}
+_CARDS: Dict[torch.device, "CardGraphs"] = {}
 
 
 class Capture(NamedTuple):
@@ -185,6 +198,48 @@ def resolve_capture(capture: Optional[bool], devices) -> bool:
     return bool(capture)
 
 
+class CardGraphs:
+    """What the graphs of one card share in this process: the stream they
+    are captured on (the allocator keeps free blocks per stream, so one
+    pool needs one stream to reuse them) and the memory pool of the live
+    graphs (``graphs``). When none is left, the allocator frees the pool,
+    and the next capture opens a new one."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool: Optional[tuple] = None
+        self.pools: List[tuple] = []
+        self.graphs: "weakref.WeakSet[torch.cuda.CUDAGraph]" = weakref.WeakSet()
+
+    def capture_pool(self) -> tuple:
+        """The pool for the next capture."""
+        if not self.graphs:
+            self.pool = tuple(torch.cuda.graph_pool_handle())
+            self.pools.append(self.pool)
+        return self.pool
+
+
+def card_graphs(device: torch.device) -> CardGraphs:
+    """The capture stream and graph pool of ``device`` (a card, with its
+    index) for the whole process, made on first use."""
+    if device not in _CARDS:
+        with torch.cuda.device(device):
+            _CARDS[device] = CardGraphs(device)
+    return _CARDS[device]
+
+
+def pool_bytes(devices=None) -> int:
+    """Device memory that the graph pools of ``devices`` (by default every
+    card) hold: the allocator's segments of each pool this process opened
+    there, for measurement."""
+    cards = [c for d, c in _CARDS.items() if devices is None or d in devices]
+    pools = {p for c in cards for p in c.pools}
+    if not pools:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools)
+
+
 def shared_programs(device, capture: Optional[bool] = None) -> "Programs":
     """The process-wide programs of ``capture`` (:func:`resolve_capture` on
     ``device``), where ``render_image`` and the mesher keep their graphs."""
@@ -210,8 +265,7 @@ class Programs:
         self.tracking: Dict[tuple, TrackProgram] = {}
         self.static: Dict[tuple, StaticProgram] = {}
         self.pretraining: Dict[tuple, object] = {}
-        self._pools: Dict[torch.device, tuple] = {}
-        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._cards: set = set()
 
     def static_program(self, name: str, key: tuple, device, fn: Callable, fixed=(),
                        args=()) -> "StaticProgram":
@@ -300,27 +354,27 @@ class Programs:
         return prog
 
     def pool_bytes(self) -> int:
-        """Device memory reserved by the graphs' pools (the allocator's
-        segments of each pool), for measurement."""
-        pools = {tuple(p) for p in self._pools.values()}
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) in pools)
+        """Device memory held by the graph pools of the cards these programs
+        captured on: the pools they share with every other ``Programs`` of
+        the process (:func:`pool_bytes`)."""
+        return pool_bytes(self._cards)
 
     def _device_context(self, device: torch.device):
         return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
     def capture_graph(self, device: torch.device, signature: str, body: Callable[[], None],
-                      mutable: List[torch.Tensor]):
-        """A graph of one call of ``body``, which writes only ``mutable``;
-        returns ``(graph, launches of one replay)``. The warm-up call's
-        effects on ``mutable`` and on the launch counters are undone."""
+                      buffers: Callable[[], List[torch.Tensor]]):
+        """A graph of one call of ``body``, which writes only ``buffers()``,
+        captured into the card's pool; returns ``(graph, launches of one
+        replay)``. The warm-up call's effects on the buffers that existed
+        before it, and on the launch counters, are undone. Raises if the
+        capture made a buffer: it would lie in the shared pool."""
         t0 = time.perf_counter()
-        if device not in self._pools:
-            with torch.cuda.device(device):
-                self._pools[device] = torch.cuda.graph_pool_handle()
-                self._streams[device] = torch.cuda.Stream(device)
-        stream = self._streams[device]
+        card = card_graphs(device)
+        self._cards.add(device)
+        stream = card.stream
         before = launch_counts()
+        mutable = buffers()
         saved = [t.detach().clone() for t in mutable]
         with torch.cuda.device(device):
             current = torch.cuda.current_stream(device)
@@ -329,11 +383,16 @@ class Programs:
                 body()
             current.wait_stream(stream)
             warm = launch_counts()
+            made = [t.data_ptr() for t in buffers()]
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=self._pools[device], stream=stream,
+            with torch.cuda.graph(graph, pool=card.capture_pool(), stream=stream,
                                   capture_error_mode="thread_local"):
                 body()
             graph.instantiate()
+            card.graphs.add(graph)
+            if [t.data_ptr() for t in buffers()] != made:
+                raise RuntimeError(f"capture of {signature}: a buffer was made in the "
+                                   "capture, in the card's shared graph pool")
             delta = launch_delta(launch_counts(), warm)
             restore_counts(before)
             with torch.no_grad():
@@ -406,10 +465,14 @@ class MappingProgram:
                 self.device,
                 f"map F={F} refine={int(refine)} ba={int(ba)} stage={stage} "
                 f"route={get_sampler_route()} {self.device}",
-                lambda: self._iterate(stage, zero),
-                [*self.pp.leaves, *self.opt.mu, *self.opt.nu, self.tab.losses, self.tab.step],
+                lambda: self._iterate(stage, zero), self.buffers,
             )
         return self.graphs[key]
+
+    def buffers(self) -> List[torch.Tensor]:
+        """What an iteration writes: the parameters, the moments, the
+        losses and the step counter."""
+        return [*self.pp.leaves, *self.opt.mu, *self.opt.nu, self.tab.losses, self.tab.step]
 
     def _iterate(self, stage: str, zero: Tuple[bool, ...]) -> None:
         mapping_iteration(self.pp, self.opt, self.tab, self.inp, self.intr, self.pcfg,
@@ -496,16 +559,19 @@ class TrackProgram:
         track_iteration(self.params, self.grids, self.bounds, self.scene_bound, self.intr,
                         self.color, self.depth, self.st, self.cfg, self.rcfg)
 
+    def buffers(self) -> List[torch.Tensor]:
+        """What an iteration writes: the solve's state."""
+        st = self.st
+        return [st.x, st.losses, st.step] + (
+            [] if st.mu is None else [st.mu, st.nu, st.best, st.best_loss])
+
     def _graph(self):
         if self.graph is None:
-            st = self.st
-            mutable = [st.x, st.losses, st.step] + (
-                [] if st.mu is None else [st.mu, st.nu, st.best, st.best_loss])
             self.graph = self.programs.capture_graph(
                 self.device,
                 f"track {self.cfg.method} iters={self.cfg.iters} "
                 f"route={get_sampler_route()} {self.device}",
-                self._iterate, mutable,
+                self._iterate, self.buffers,
             )
         return self.graph
 
@@ -558,10 +624,15 @@ class StaticProgram:
             else:
                 _copy_tree_(self.out, out)
 
+    def buffers(self) -> List[torch.Tensor]:
+        """What a call writes: the static outputs (none before the first
+        call, which makes them)."""
+        return tree_leaves(self.out) if self.out is not None else []
+
     def _graph(self):
         if self.graph is None:
             self.graph = self.programs.capture_graph(self.device, self.signature,
-                                                     self._body, [])
+                                                     self._body, self.buffers)
         return self.graph
 
     def load(self, *fixed) -> None:

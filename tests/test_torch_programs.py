@@ -14,7 +14,12 @@ as CUDA graphs.
   chunk, the mesher's chunk) equal the eager functions bit for bit over
   calls with other inputs, and never hand out their buffers.
 - Launches counted at a capture are added once per replay.
+- Every ``Programs`` captures a card's graphs on the card's one stream into
+  its one pool, and no program makes a buffer in a capture (run through
+  host stand-ins of ``torch.cuda``'s capture calls).
 """
+import contextlib
+import gc
 import os
 import types
 
@@ -465,3 +470,129 @@ def test_mesher_programs_equal_the_chunk_loop(world):
             assert got.shape == want.shape and np.array_equal(got, want), stage
         grids = {lvl: g + 0.01 for lvl, g in grids.items()}
     assert len(progs.static) == 2
+
+
+# ------------------------------------------------------- one pool per card
+class _FakeGraph:
+    """A stand-in for ``torch.cuda.CUDAGraph``: replays nothing."""
+
+    def __init__(self, keep_graph=False):
+        pass
+
+    def instantiate(self):
+        pass
+
+    def replay(self):
+        pass
+
+
+class _FakeStream:
+    def __init__(self, device=None):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``torch.cuda``'s capture calls as host stand-ins, so that
+    ``Programs.capture_graph`` runs its warm-up and its capture (each one
+    call of the body) on the CPU; a capture's replay does nothing. Returns
+    the ``(pool, stream)`` of every capture, in order."""
+    seen = []
+    handles = iter(range(1, 10**6))
+
+    class _Graph:
+        def __init__(self, graph, pool, stream, capture_error_mode):
+            seen.append((pool, stream))
+
+        def __enter__(self):
+            pass
+
+        def __exit__(self, *exc):
+            pass
+
+    nullctx = lambda *a, **k: contextlib.nullcontext()  # noqa: E731
+    monkeypatch.setattr(programs, "_CARDS", {})
+    monkeypatch.setattr(programs, "graph_nodes", lambda graph: 0)
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "device", nullctx)
+    monkeypatch.setattr(torch.cuda, "stream", nullctx)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, next(handles)))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _Graph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    return seen
+
+
+def test_every_programs_object_of_a_card_shares_its_stream_and_pool(fake_card):
+    """Captures by two ``Programs`` on one card get the card's one stream
+    and pool; another card has its own. The warm-up's writes are undone.
+    The pool lives while one of its graphs does: once none is left, the
+    next capture opens a new one."""
+    card0, card1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    buf = torch.zeros(3)
+
+    def body():
+        buf.add_(1.0)
+
+    kept = [programs.Programs(capture=True).capture_graph(dev, "add", body, lambda: [buf])
+            for dev in (card0, card0, card1)]
+    assert torch.equal(buf, torch.zeros(3))
+    (pool0, stream0), (pool0b, stream0b), (pool1, stream1) = fake_card
+    assert (pool0b, stream0b) == (pool0, stream0) and pool1 != pool0 and stream1 is not stream0
+    assert programs.card_graphs(card0).stream is stream0
+    assert len(programs.card_graphs(card0).graphs) == 2
+    del kept[:2]
+    gc.collect()
+    programs.Programs(capture=True).capture_graph(card0, "add", body, lambda: [buf])
+    assert fake_card[-1][0] != pool0 and fake_card[-1][1] is stream0
+    assert programs.card_graphs(card0).pools == [pool0, fake_card[-1][0]]
+
+
+def test_a_capture_that_makes_a_buffer_raises(fake_card):
+    """A body that makes its output anew at every call would leave it in
+    the card's shared pool: the capture raises."""
+    out = {}
+
+    def body():
+        out["t"] = torch.ones(2)
+
+    with pytest.raises(RuntimeError, match="made in the capture"):
+        programs.Programs(capture=True).capture_graph(
+            torch.device("cuda", 0), "fresh output", body, lambda: list(out.values()))
+
+
+def test_every_program_makes_its_buffers_before_its_capture(world, fake_card):
+    """Every program kind captured through the host stand-ins (a capture
+    that made a buffer would raise): a system's precompiled mapping, solve
+    and keyframe programs, the ``render_image`` chunk, the mesher's chunks
+    and a pretraining step; each captures on the card's one stream into
+    its one pool, and the warm-ups leave the map as it was."""
+    from niceslam_tpu_torch import pretrain_decoders as pd
+    from niceslam_tpu_torch.grid.hierarchy import init_grids
+
+    slam, frames = world
+    system = _slam()
+    system._programs = progs = programs.Programs(capture=True)
+    before = tree_map(torch.clone, (system.state.grids, system.state.decoders))
+    system.precompile()
+    assert _equal_trees((system.state.grids, system.state.decoders), before)
+    c2w = torch.from_numpy(frames[1].gt_c2w.astype(np.float32))
+    render_image(slam.state.decoders, slam.state.grids, slam.bounds, slam.scene_bound,
+                 slam.intr, c2w, None, "color", slam.rcfg, 5, programs=progs)
+    pts = mesher.lattice_points(slam.scene_bound, 8).reshape(-1, 3)
+    mesher.query_chunks(slam.state.decoders, slam.state.grids, slam.bounds, pts, 200, "fine",
+                        "occupancy", programs=progs)
+    grids, bounds, adj = init_grids(np.asarray(pd.BOUND_SET[0], np.float32), device="cpu")
+    geom = {k: torch.from_numpy(v) for k, v in
+            pd.scene_geometry(np.random.default_rng(0), adj).items()}
+    dec = pd.trainable(slam.state.decoders)
+    pd.scene_program(progs, dec, pd.trainable(grids), geom, bounds,
+                     pd.PretrainConfig(steps=2, batch=64)).warm(dec, grids, geom, bounds)
+    kinds = {c.signature.split()[0] for c in progs.captures}
+    assert kinds == {"map", "track", "keyframe_overlap", "frustum_masks", "render_chunk",
+                     "mesher_chunk", "pretrain"}
+    assert len(fake_card) == len(progs.captures) and len(set(fake_card)) == 1
