@@ -26,9 +26,10 @@ prints no result):
    output, also on one mesher chunk (65,536 lattice points in the mesher's
    order) and, for parity, at C = 3, C = 96 and in a misaligned grid (its
    scalar and looping variants); its bound counts the grid rows that the
-   points touch. The grid gradients of K2 and K5 must
-   equal their fixed-point model (``ops/fixed_point.py``) bit for bit, also
-   with the points in another order. K2 asked for the grid gradient alone,
+   points touch, and K4's the table rows that its starts touch. The grid
+   gradients of K2 and K5 must equal their fixed-point model
+   (``ops/fixed_point.py``) bit for bit, also with the points in another
+   order. K2 asked for the grid gradient alone,
    as the pretraining launches it (phase 12), at its largest fine grid
    (62x36x74x32) on one batch's 8,190 occupancy points: against its plain
    version, its model (also permuted) and, with an all-zero cotangent,
@@ -272,36 +273,37 @@ def nvidia_smi_line() -> str:
     return out[torch.cuda.current_device()]
 
 
-def device_ms(fn, reps: int = 50, rounds: int = 7) -> float:
-    """Median device time of one ``fn()`` in ms (CUDA events).
+def _batch_ms(f, reps: int) -> float:
+    """Device time of one ``f()`` in ms, from one batch of ``reps`` calls
+    between CUDA events. A spin kernel keeps the card busy while the host
+    enqueues the batch, so the events bracket back-to-back device work and
+    not the host's launch overhead."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    a.record()
+    for _ in range(reps):
+        f()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
-    A spin kernel keeps the card busy while the host enqueues ``reps``
-    calls, so the events bracket back-to-back device work and not the
-    host's launch overhead."""
+
+def device_ms(fn, reps: int = 50, rounds: int = 7) -> float:
+    """Median device time of one ``fn()`` in ms over ``rounds`` batches
+    (:func:`_batch_ms`)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
+    return statistics.median(_batch_ms(fn, reps) for _ in range(rounds))
 
 
 def paired_ms(fn, lib, reps: int = 50, rounds: int = 15) -> dict:
     """A kernel ``fn`` and the library call ``lib`` that computes the same
     function, timed alternately on the same inputs: ``rounds`` rounds, each
-    one batch of ``reps`` calls of either (the one first in even rounds,
-    the other in odd ones), behind a spin kernel as in :func:`device_ms`.
-    Returns the median ms of one call of each and their spreads (min and
-    max over the rounds)."""
+    one :func:`_batch_ms` batch of either (the one first in even rounds,
+    the other in odd ones). Returns the median ms of one call of each and
+    their spreads (min and max over the rounds)."""
     for _ in range(3):
         fn()
         lib()
@@ -311,15 +313,7 @@ def paired_ms(fn, lib, reps: int = 50, rounds: int = 15) -> dict:
         order = (("ms", fn), ("library_ms", lib)) if r % 2 == 0 else (
             ("library_ms", lib), ("ms", fn))
         for key, f in order:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(50_000_000)
-            a.record()
-            for _ in range(reps):
-                f()
-            b.record()
-            b.synchronize()
-            times[key].append(a.elapsed_time(b) / reps)
+            times[key].append(_batch_ms(f, reps))
     out = {}
     for key, ts in times.items():
         out[key] = statistics.median(ts)
@@ -832,12 +826,15 @@ def packed_kernel_rows(pk, fp, case, with_table=True):
         if not (torch.equal(rows, ref) and torch.equal(lib, ref)):
             raise AssertionError(f"gather_rows[{name}]: kernel disagrees with its plain "
                                  f"version (max abs err {max_err(rows, ref):.3e})")
-        bms, by = bound_ms(4 * (2 * n * 8 * C + n), 0)
+        # Bytes: the distinct table rows the starts touch, read once; the
+        # indices; the n rows written.
+        touched = int(torch.unique(start).numel())
+        bms, by = bound_ms(4 * (touched * 8 * C + n + n * 8 * C), 0)
         row("gather_rows", max_abs_err=max_err(rows, ref),
             **paired_ms(lambda: pk.gather_rows(table, start),
                         lambda: torch.index_select(table, 0, start)),
             plain_ms=device_ms(lambda: pk.gather_rows_plain(table, start), reps=10),
-            bound_ms=bms, bound_by=by)
+            bound_ms=bms, bound_by=by, extra=f"{touched} of {R} rows touched")
         del table, rows, lib
 
     def lib_scatter():
@@ -1080,13 +1077,15 @@ def log_captures(tag: str, slam):
     """Every graph the run captured: what it runs, its warm-up and capture
     seconds, node count and launches per replay; the pools' reserved
     memory."""
+    from niceslam_tpu_torch.slam.programs import pool_bytes
+
     progs = slam._programs
     for c in progs.captures:
         log(f"{tag}: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
             f"launches per replay {c.launches}")
     if progs.capture:
         log(f"{tag}: the card's graph pool (every graph of the process) "
-            f"{progs.pool_bytes() / 2**20:.1f} MiB reserved")
+            f"{pool_bytes() / 2**20:.1f} MiB reserved")
 
 
 KEYFRAME_PROGRAMS = ("keyframe_overlap", "frustum_masks")
@@ -1204,7 +1203,7 @@ def phase_mesher(slam, cfg, resolution: int = 128):
     ``write_ply`` of the packed mesh."""
     from niceslam_tpu_torch.eval import mesher
     from niceslam_tpu_torch.ops.trilinear import sampler_route
-    from niceslam_tpu_torch.slam.programs import Programs, shared_programs
+    from niceslam_tpu_torch.slam.programs import Programs, pool_bytes, shared_programs
 
     st = slam.state
     args = (st.decoders, st.grids, slam.bounds, slam.scene_bound)
@@ -1266,7 +1265,7 @@ def phase_mesher(slam, cfg, resolution: int = 128):
         if c.signature.startswith("mesher_chunk"):
             log(f"mesher: captured {c.signature}: {c.seconds:.3f} s, {c.nodes} nodes, "
                 f"launches per replay {c.launches}")
-    log(f"mesher: the card's graph pool {shared_programs('cuda').pool_bytes() / 2**20:.1f} "
+    log(f"mesher: the card's graph pool {pool_bytes() / 2**20:.1f} "
         f"MiB reserved")
     # Tolerance: 1e-4 of the field's scale. The routes' features differ by
     # rounding (K1 fuses the lerp into FMAs, the packed lerp runs op by op)
@@ -2061,7 +2060,7 @@ def phase_real_data(frames: int = 6):
     from niceslam_tpu_torch.io import png
     from niceslam_tpu_torch.models.decoders import tree_map
     from niceslam_tpu_torch.render.renderer import render_image
-    from niceslam_tpu_torch.slam.programs import Programs, shared_programs
+    from niceslam_tpu_torch.slam.programs import Programs, pool_bytes, shared_programs
     from niceslam_tpu_torch.slam.system import NiceSLAM
 
     config = os.path.join(ROOT, "configs", "cofusion.yaml")
@@ -2192,7 +2191,7 @@ def phase_real_data(frames: int = 6):
                     f"launches per replay {c.launches}")
         log(f"render: graphed and eager images equal bit for bit in {', '.join(fields)}; the "
             f"32-row band on the CPU {t_cpu:.2f} s; the card's graph pool "
-            f"{shared_programs('cuda').pool_bytes() / 2**20:.1f} MiB reserved")
+            f"{pool_bytes() / 2**20:.1f} MiB reserved")
         del slam, out
     return dt
 

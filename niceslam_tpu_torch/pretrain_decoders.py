@@ -55,6 +55,7 @@ from .slam.programs import (
     add_replays,
     clone_tree,
     indexed_device,
+    pool_bytes,
     resolve_capture,
     shared_programs,
 )
@@ -440,7 +441,7 @@ def pretrain(cfg: PretrainConfig, device="cuda", capture: Optional[bool] = None)
         if on_card:
             rec["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
             if programs.capture:
-                rec["pool_mib"] = programs.pool_bytes() / 2**20
+                rec["pool_mib"] = pool_bytes([indexed_device(device)]) / 2**20
         if not np.isfinite(losses[-1]):
             raise FloatingPointError(f"scene {s} diverged: loss {losses[-1]}")
         print(f"scene {s} (bound {bi}) {json.dumps(rec)}", file=sys.stderr, flush=True)

@@ -265,7 +265,6 @@ class Programs:
         self.tracking: Dict[tuple, TrackProgram] = {}
         self.static: Dict[tuple, StaticProgram] = {}
         self.pretraining: Dict[tuple, object] = {}
-        self._cards: set = set()
 
     def static_program(self, name: str, key: tuple, device, fn: Callable, fixed=(),
                        args=()) -> "StaticProgram":
@@ -353,12 +352,6 @@ class Programs:
                 self, key[0], cfg, intr, rcfg, params, grids)
         return prog
 
-    def pool_bytes(self) -> int:
-        """Device memory held by the graph pools of the cards these programs
-        captured on: the pools they share with every other ``Programs`` of
-        the process (:func:`pool_bytes`)."""
-        return pool_bytes(self._cards)
-
     def _device_context(self, device: torch.device):
         return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
@@ -371,7 +364,6 @@ class Programs:
         capture made a buffer: it would lie in the shared pool."""
         t0 = time.perf_counter()
         card = card_graphs(device)
-        self._cards.add(device)
         stream = card.stream
         before = launch_counts()
         mutable = buffers()
