@@ -122,14 +122,25 @@ prints no result):
    and cameras within 2e-5 at the end (with kf = 2 printed: Adam amplifies
    the rounding of the slices' sum), every rank the same map. Each rank
    prints its seconds, peak memory, launches and its time in all_reduce.
+   At (1, 2) the same pass also runs as the system's kf-sharded program
+   (two CUDA graphs per stage around the eager all_reduce), which must
+   equal the eager pass bit for bit, launches included; ms per iteration
+   and all_reduce ms per iteration both ways. On the 2 ranks, ``NiceSLAM``
+   attached to a (1, 2) mesh at the bench configuration, ``precompile``
+   and the main path's frames graphed, then with ``capture=False``: every
+   run's digest equal, no collective in ``precompile``, seconds per frame
+   both ways, each rank's graph pool and peak memory.
    (b) ``NiceSLAM`` with ``parallel.track_role`` and ``parallel.stage_ep``
    on the devices ``[cuda:0, cuda:0]``, the fused strict main path: its
    digest must equal phase 4's. (c) ``python -m niceslam_tpu_torch
    configs/cofusion.yaml`` on 4 ranks (``map = 2, kf = 2``, synthetic
    scene, async, Adam, ``iters_first`` cut to 100, no color refinement, 5
-   frames, checkpoints every 2 frames), then a resume from frame 2: every
-   rank exits 0 (the command fails when the ranks' trajectories differ),
-   no lost track.
+   frames, checkpoints every 2 frames), then a resume from frame 2; then
+   ``configs/apartment_multihost.yaml`` on 2 ranks on its own mesh (``map
+   = 1``, ``kf = 0``: every rank on kf), 4096 rays, synthetic scene,
+   ``iters_first`` cut to 300, 5 frames: every rank exits 0 (the command
+   fails when the ranks' trajectories differ), no lost track, ``fps_avg``
+   and each rank's launches, peak memory and graph pool printed.
 
 12. pretraining: one step of ``pretrain_decoders`` at the bench envelope
    and full width (batch 4096, ``GridConfig()``, ``DecoderConfig()``), card
@@ -157,8 +168,10 @@ prints no result):
    busy share graphed and eager.
 
 Phases 4, 7, 8, 9, 10, 11 (b) and 12 run graphed, as ``NiceSLAM``,
-``render_image``, the mesher and ``pretrain_decoders`` do on a card; phase
-11's ranks run eagerly. Every graph of the card, whichever object holds
+``render_image``, the mesher and ``pretrain_decoders`` do on a card; so
+do phase 11's command lines and its system on (1, 2), but for the passes
+at ``map = 2``, which run eagerly (their collectives sit inside the halo
+sampler), as do the halo and sharded-pass jobs of phase 11 (a). Every graph of the card, whichever object holds
 it, lies in the card's one pool (``slam/programs.py``): the process's pool
 is read where each phase ends (after the main path, the meshes of phase 5
 and the panel of phase 10 among them) and summed up in one line.
@@ -181,6 +194,7 @@ last, ``{"ok": true, "device": {...}}``. It needs one CUDA device and the
 rest of the repository beside it; without either it fails.
 """
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1893,6 +1907,8 @@ CLI_WITH_LAUNCHES = (
     "rc = main(sys.argv[1:])\n"
     "print('launches ' + json.dumps({**tk.LAUNCHES, **pk.LAUNCHES}), file=sys.stderr)\n"
     "print(f'peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB', file=sys.stderr)\n"
+    "from niceslam_tpu_torch.slam.programs import pool_bytes\n"
+    "print(f'pool {pool_bytes() / 2**20:.1f} MiB', file=sys.stderr)\n"
     "sys.exit(rc)\n"
 )
 # The kernels' names in a profiler trace (csrc/trilerp.cu: K1, and K2's two
@@ -2202,6 +2218,12 @@ def phase_real_data(frames: int = 6):
 # jobs and writes its results, with its seconds, peak device memory and the
 # time it spent in all_reduce, to a JSON file.
 RANK_TIMEOUT_S = 180
+# Frame 0's mapping iterations of the 2-rank command line on the shipped
+# mesh (configs/apartment_multihost.yaml: 4096 rays a row, a window of 12).
+KF_CLI_ITERS_FIRST = 300
+# This rank's host seconds in all_reduce (synchronised before and after
+# each call) and its number of calls.
+ALL_REDUCE = {"s": 0.0, "calls": 0}
 
 
 def _rank_main(rank, world, init, jobs, out_dir):
@@ -2217,7 +2239,6 @@ def _rank_main(rank, world, init, jobs, out_dir):
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world,
                                 rank=rank, timeout=timedelta(seconds=RANK_TIMEOUT_S))
-        spent = {"s": 0.0, "calls": 0}
         plain_all_reduce = dist.all_reduce
 
         def timed_all_reduce(*a, **kw):
@@ -2225,20 +2246,20 @@ def _rank_main(rank, world, init, jobs, out_dir):
             t0 = time.perf_counter()
             out = plain_all_reduce(*a, **kw)
             torch.cuda.synchronize()
-            spent["s"] += time.perf_counter() - t0
-            spent["calls"] += 1
+            ALL_REDUCE["s"] += time.perf_counter() - t0
+            ALL_REDUCE["calls"] += 1
             return out
 
         dist.all_reduce = timed_all_reduce
         results = []
         for name, kw in jobs:
-            spent.update(s=0.0, calls=0)
+            ALL_REDUCE.update(s=0.0, calls=0)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            res = RANK_JOBS[name](**kw)
+            res = RANK_JOBS[name](rank=rank, **kw)
             torch.cuda.synchronize()
-            res.update(seconds=time.perf_counter() - t0, all_reduce_s=spent["s"],
-                       all_reduce_calls=spent["calls"],
+            res.update(seconds=time.perf_counter() - t0, all_reduce_s=ALL_REDUCE["s"],
+                       all_reduce_calls=ALL_REDUCE["calls"],
                        peak_mib=torch.cuda.max_memory_allocated() / 2**20)
             results.append(res)
         dist.destroy_process_group()
@@ -2286,7 +2307,7 @@ def spawn_ranks(world: int, jobs, deadline_s: float = 240.0):
         return out
 
 
-def _halo_job(shape, route, n_map, n_pts=48_000, seed=0):
+def _halo_job(shape, route, n_map, n_pts=48_000, seed=0, rank=0):
     """The halo sampler on this rank's block of a grid of ``shape`` padded
     to ``n_map`` rows (``pad_grid_for_sharding``), against the unsharded
     sampler on the whole grid, both on the card: the launches of the
@@ -2351,20 +2372,26 @@ def state_errs(a: dict, b: dict) -> dict:
     return out
 
 
-def first_grads(reduce=None):
-    """A ``reduce`` hook for ``run_schedule`` (around ``reduce``, if given)
-    that keeps copies of the first row's gradients; returns ``(hook,
-    kept)``."""
-    kept = []
+@contextlib.contextmanager
+def first_grads():
+    """Keep copies of the gradients that the first row of a pass steps on
+    (summed over the kf group, on a mesh): wraps ``mapper.mapping_step``,
+    which every eager iteration calls. Yields the list that receives
+    them."""
+    from niceslam_tpu_torch.slam import mapper
 
-    def hook(loss, grads, **kw):
-        if reduce is not None:
-            loss, grads = reduce(loss, grads, **kw)
+    kept, plain = [], mapper.mapping_step
+
+    def hook(pp, opt_state, tab, inp, loss, grads, zero):
         if not kept:
             kept.append([None if g is None else g.detach().clone() for g in grads])
-        return loss, grads
+        return plain(pp, opt_state, tab, inp, loss, grads, zero)
 
-    return hook, kept
+    mapper.mapping_step = hook
+    try:
+        yield kept
+    finally:
+        mapper.mapping_step = plain
 
 
 def grad_errs(pp, got, want, mesh) -> dict:
@@ -2385,44 +2412,129 @@ def grad_errs(pp, got, want, mesh) -> dict:
     return out
 
 
-def _mapping_job(path, n_map, n_kf, which):
+def _timed(fn):
+    """``(fn(), host ms, all_reduce ms, all_reduce calls)``, synchronised."""
+    torch.cuda.synchronize()
+    ar0, calls0, t0 = ALL_REDUCE["s"], ALL_REDUCE["calls"], time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, 1e3 * (time.perf_counter() - t0), 1e3 * (ALL_REDUCE["s"] - ar0),
+            ALL_REDUCE["calls"] - calls0)
+
+
+def _mapping_job(path, n_map, n_kf, which, rank=0):
     """The sharded ``run_schedule`` of pass ``which`` saved at ``path``;
     returns its losses, its first row's summed gradients and its final
-    parameters against the unsharded pass saved there."""
-    from niceslam_tpu_torch.parallel import sharded_mapper as sm
+    parameters against the unsharded pass saved there. With one map block
+    the system's kf-sharded program too, graphed (its second run, after
+    the capture), which must equal the eager pass bit for bit, launches
+    included; both timed, with their all_reduce time."""
+    from niceslam_tpu_torch.models.decoders import tree_leaves
     from niceslam_tpu_torch.parallel.mesh import make_mesh
     from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
-    from niceslam_tpu_torch.slam.mapper import init_opt_state, make_pass_params
+    from niceslam_tpu_torch.slam import programs
+    from niceslam_tpu_torch.slam.mapper import init_opt_state, make_pass_params, stack_draws
 
     a = torch.load(path, map_location="cuda:0", weights_only=False)
     sched, ref = a["passes"][which]
     rt = MapKfRuntime(make_mesh(n_map, n_kf), "cuda:0", "gloo")
     pp = make_pass_params(rt.split(a["grids"]), a["decoders"], a["cams"], a["pcfg"])
     opt = init_opt_state(pp)
-    plain_reduce = sm.reduce_over_kf
-    sm.reduce_over_kf, kept = first_grads(plain_reduce)
     set_launches({})
-    try:
-        losses = rt.run_schedule(
+    with first_grads() as kept:
+        losses, ms, ar_ms, _ = _timed(lambda: rt.run_schedule(
             pp, opt, sched, rt.split(a["masks"]), a["bounds"], a["scene_bound"], a["intr"],
             a["colors"], a["depths"], a["valid"], a["fixed"], a["pcfg"], a["rcfg"],
-            pixels=a["pixels"])
-    finally:
-        sm.reduce_over_kf = plain_reduce
+            pixels=a["pixels"]))
     launches = all_launches()
     check_route_launches(f"sharded pass {n_map}x{n_kf}", "fused", launches)
     grids = rt.assemble(pp.params["grids"])
     lo, want = losses.cpu(), ref["losses"].cpu()
-    return dict(job="mapping", n_map=n_map, n_kf=n_kf, launches=launches,
-                diffs=state_errs(pass_state(pp, grids), ref), held=n_kf == 1,
-                grad_err=grad_errs(pp, kept[0], ref["grads"], rt.mesh),
-                loss_first_equal=bool(lo[0] == want[0]),
-                loss_err=float(((lo - want).abs() / (2e-4 + 2e-4 * want.abs())).max()),
-                digest=digest(np.zeros((1, 4, 4), np.float32), grids),
-                iters=int(len(lo)))
+    out = dict(job="mapping", n_map=n_map, n_kf=n_kf, launches=launches,
+               diffs=state_errs(pass_state(pp, grids), ref), held=n_kf == 1,
+               grad_err=grad_errs(pp, kept[0], ref["grads"], rt.mesh),
+               loss_first_equal=bool(lo[0] == want[0]),
+               loss_err=float(((lo - want).abs() / (2e-4 + 2e-4 * want.abs())).max()),
+               digest=digest(np.zeros((1, 4, 4), np.float32), grids),
+               iters=int(len(lo)), ms=ms, all_reduce_ms=ar_ms)
+    if n_map > 1:
+        return out
+    progs = programs.Programs(capture=True)
+    prog = progs.map_program(
+        (a["cams"].shape[0], False, True), "cuda:0", a["pcfg"], a["intr"], a["rcfg"],
+        a["grids"], a["decoders"], a["cams"], len(sched), kf=rt.kf_slice(a["pcfg"].n_pixels))
+    draws = stack_draws([a["pixels"][it] for it in range(len(sched))], "cuda:0")
+
+    def graphed():
+        return prog.run(a["grids"], a["decoders"], a["cams"], a["masks"], a["bounds"],
+                        a["scene_bound"], a["colors"], a["depths"], a["valid"], a["fixed"],
+                        sched, draws)
+
+    _, ms_first, _, _ = _timed(graphed)  # captures the graphs of each stage
+    set_launches({})
+    (g, d, c, glo), ms_g, ar_ms_g, calls = _timed(graphed)
+    glaunches = all_launches()
+    equal = (torch.equal(glo, losses) and torch.equal(c, pp.params["cams"])
+             and all(torch.equal(g[k], v) for k, v in pp.params["grids"].items())
+             and all(torch.equal(x, y) for x, y in zip(tree_leaves(d),
+                                                       tree_leaves(pp.params["decoders"]))))
+    if not equal or glaunches != launches or calls != len(sched):
+        raise AssertionError(
+            f"kf program 1x{n_kf} rank {rank}: graphed equal to eager {equal}, launches "
+            f"{glaunches} against {launches}, {calls} all_reduces for {len(sched)} rows")
+    out.update(graphed_ms=ms_g, graphed_all_reduce_ms=ar_ms_g, graphed_first_ms=ms_first,
+               captures=[[cp.signature, cp.seconds, cp.nodes] for cp in progs.captures],
+               graphed_equal=equal, pool_mib=programs.pool_bytes() / 2**20)
+    return out
 
 
-RANK_JOBS = {"halo": _halo_job, "mapping": _mapping_job}
+def _system_job(frames: int, iters_first: int, rank=0):
+    """``NiceSLAM`` on the bench configuration attached to this rank of a
+    1 x 2 mesh, ``frames`` frames graphed (after ``precompile``), then with
+    ``capture=False``: each run's per-frame seconds, digest, ATE, the
+    process's graph pool and peak memory."""
+    from niceslam_tpu_torch.config.schema import ParallelConfig
+    from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
+    from niceslam_tpu_torch.parallel.mesh import make_mesh
+    from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+    from niceslam_tpu_torch.slam import programs
+    from niceslam_tpu_torch.slam.system import NiceSLAM
+
+    cfg = bench_config()
+    cfg = dataclasses.replace(
+        cfg, parallel=ParallelConfig(n_processes=2, map=1, kf=2),
+        mapping=dataclasses.replace(cfg.mapping, iters_first=iters_first))
+    rt = MapKfRuntime(make_mesh(1, 2), "cuda:0", "gloo", rank, 2)
+    out = dict(job="system")
+    for tag, capture in (("graphed", None), ("eager", False)):
+        reader = SyntheticBoxReader(cfg, n_frames=36)
+        slam = NiceSLAM(cfg, reader=reader, seed=0, device="cuda:0", capture=capture)
+        slam.n_imgs = frames
+        rt.attach(slam)
+        torch.cuda.reset_peak_memory_stats()
+        set_launches({})
+        _, pre_ms, _, pre_calls = _timed(slam.precompile)
+        dts, ars = [], []
+        for k in range(frames):
+            _, ms, ar_ms, _ = _timed(lambda: slam.step(reader[k]))
+            dts.append(ms / 1e3)
+            ars.append(ar_ms / 1e3)
+        res = slam.result()
+        poses = np.stack(res["est_c2w"])
+        kinds = sorted({cp.signature.split()[0] for cp in slam._programs.captures})
+        out[tag] = dict(dts=dts, all_reduce_s=ars, precompile_s=pre_ms / 1e3,
+                        precompile_all_reduces=pre_calls, captures=len(slam._programs.captures),
+                        kinds=kinds, digest=digest(poses, slam.state.grids),
+                        ate_cm=100.0 * res["ate_rmse"], launches=all_launches(),
+                        finite=bool(np.isfinite(poses).all()),
+                        pool_mib=programs.pool_bytes() / 2**20,
+                        peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        del slam
+        gc.collect()
+    return out
+
+
+RANK_JOBS = {"halo": _halo_job, "mapping": _mapping_job, "system": _system_job}
 
 
 def mapping_pass_payload(cfg, run: dict, path: str, iters):
@@ -2464,20 +2576,56 @@ def mapping_pass_payload(cfg, run: dict, path: str, iters):
     for sched in scheds:
         pp = mapper.make_pass_params(grids, slam.state.decoders, cams, pcfg)
         opt = mapper.init_opt_state(pp)
-        hook, kept = first_grads()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = mapper.run_schedule(pp, opt, sched, masks, bounds, slam.scene_bound,
-                                     slam.intr, colors, depths, valid, fixed, pcfg,
-                                     slam.rcfg, pixels=pixels, reduce=hook)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with first_grads() as kept:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = mapper.run_schedule(pp, opt, sched, masks, bounds, slam.scene_bound,
+                                         slam.intr, colors, depths, valid, fixed, pcfg,
+                                         slam.rcfg, pixels=pixels)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         a["passes"].append((sched, dict(pass_state(pp), losses=losses, grads=kept[0])))
         log(f"multi: the unsharded pass ({len(sched)} iterations x {m.pixels} px, "
             f"Z {[g.shape[0] for g in grids.values()]}): {dt:.3f} s, losses "
             f"{losses[0].item():.6f} -> {losses[-1].item():.6f}")
     torch.save(a, path)
     return dt
+
+
+def log_system_job(rank: int, r: dict):
+    """One rank's runtime-attached system, graphed and eager."""
+    for tag in ("graphed", "eager"):
+        x = r[tag]
+        log(f"multi system 1x2 rank {rank} [{tag}]: precompile {x['precompile_s']:.3f} s "
+            f"({x['captures']} graphs: {x['kinds']}, {x['precompile_all_reduces']} "
+            f"all_reduces), per-frame seconds {[round(d, 4) for d in x['dts']]}, after "
+            f"frame 0 {sum(x['dts'][1:]):.3f} s, all_reduce per frame "
+            f"{[round(d, 4) for d in x['all_reduce_s']]}, ATE {x['ate_cm']:.4f} cm, sha1 "
+            f"{x['digest']}, launches {x['launches']}, graph pool {x['pool_mib']:.1f} MiB, "
+            f"peak {x['peak_mib']:.1f} MiB")
+
+
+def check_system_job(rows):
+    """Every rank's graphed run gives its eager run's digest, the ranks
+    agree, no track is lost, the graphed run replayed the solve, keyframe
+    and mapping graphs, and ``precompile`` issued no collective."""
+    digests = {r[tag]["digest"] for r in rows for tag in ("graphed", "eager")}
+    g = rows[0]["graphed"]
+    problems = []
+    if len(digests) != 1:
+        problems.append(f"digests {digests}")
+    if any(r[t]["precompile_all_reduces"] for r in rows for t in ("graphed", "eager")):
+        problems.append("precompile issued a collective")
+    if not {"map", "track", *KEYFRAME_PROGRAMS} <= set(g["kinds"]):
+        problems.append(f"graphs captured: {g['kinds']}")
+    if not all(r[t]["finite"] and r[t]["ate_cm"] < ATE_LOST_CM for r in rows
+               for t in ("graphed", "eager")):
+        problems.append(f"lost track: {[r[t]['ate_cm'] for r in rows for t in ('graphed', 'eager')]}")
+    if problems:
+        raise AssertionError(f"multi system 1x2: {problems}")
+    log(f"multi system 1x2: graphed and eager equal on every rank (sha1 {digests.pop()}); "
+        f"after frame 0 graphed {sum(g['dts'][1:]):.3f} s, eager "
+        f"{sum(rows[0]['eager']['dts'][1:]):.3f} s (rank 0)")
 
 
 def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int = 5):
@@ -2499,12 +2647,18 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                     for lvl in ("fine", "middle") for route in ROUTE_KERNELS]
             jobs += [("mapping", dict(path=path, n_map=m, n_kf=k, which=w))
                      for m, k in meshes for w in range(len(iters))]
+            if world == 2:
+                jobs.append(("system", dict(frames=run["n_frames"],
+                                            iters_first=cfg.mapping.iters_first)))
             t0 = time.perf_counter()
-            res = spawn_ranks(world, jobs)
+            res = spawn_ranks(world, jobs, deadline_s=720.0 if world == 2 else 240.0)
             log(f"multi: {world} ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s "
                 f"(processes included)")
             for rank, rows in enumerate(res):
                 for r in rows:
+                    if r["job"] == "system":
+                        log_system_job(rank, r)
+                        continue
                     what = (f"halo {r['route']} {r['shape']} map={r['n_map']} zb={r['zb']}"
                             if r["job"] == "halo" else f"mapping {r['n_map']}x{r['n_kf']}")
                     extra = (f"{r['ms']:.2f} ms (unsharded {r['ms_unsharded']:.2f}), err grid "
@@ -2518,6 +2672,15 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                     log(f"multi rank {rank}/{world}: {what}: {r['seconds']:.3f} s, peak "
                         f"{r['peak_mib']:.1f} MiB, all_reduce {r['all_reduce_s'] * 1e3:.1f} ms "
                         f"in {r['all_reduce_calls']} calls; launches {r['launches']}; {extra}")
+                    if "graphed_ms" in r:
+                        n = r["iters"]
+                        log(f"multi rank {rank}/{world}: {what} as the system's kf program, "
+                            f"graphed: {r['graphed_ms'] / n:.3f} ms per iteration (all_reduce "
+                            f"{r['graphed_all_reduce_ms'] / n:.3f}), eager {r['ms'] / n:.3f} "
+                            f"(all_reduce {r['all_reduce_ms'] / n:.3f}), first graphed run "
+                            f"with its captures {r['graphed_first_ms']:.1f} ms; bit-equal to "
+                            f"the eager pass, launches included; graph pool "
+                            f"{r['pool_mib']:.1f} MiB; captures {r['captures']}")
                     if r["job"] == "mapping":
                         bad = {k: v for k, v in r["diffs"].items()
                                if r["held"] and not v <= 2e-5}
@@ -2527,9 +2690,11 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                             raise AssertionError(f"multi: {what} differs from the unsharded "
                                                  f"pass: losses {r['loss_err']:.3f} of the "
                                                  f"tolerance, {bad}")
-            for rows in zip(*res):  # every rank of a mapping job holds the same map
+            for rows in zip(*res):  # every rank of a job holds the same map
                 if rows[0]["job"] == "mapping" and len({r["digest"] for r in rows}) != 1:
                     raise AssertionError(f"multi: the ranks' maps differ: {rows}")
+                if rows[0]["job"] == "system":
+                    check_system_job(rows)
             for r in res[0]:
                 if r["job"] == "mapping" and r["iters"] == max(iters):
                     log(f"multi: mapping {r['n_map']}x{r['n_kf']}: {r['seconds']:.3f} s against "
@@ -2563,30 +2728,28 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
         raise AssertionError("multi roles: the run differs from the plain main path")
     del slam
 
-    # (c) the command line on 4 ranks, map = 2 x kf = 2, with a resume.
-    config = os.path.join(ROOT, "configs", "cofusion.yaml")
-    overrides = ["dataset=synthetic", "sync_method=async", "tracking.method=adam",
-                 "mapping.iters_first=100", "mapping.color_refine=false",
-                 "mapping.ckpt_freq=2", "parallel.n_processes=4", "parallel.map=2",
-                 "parallel.kf=2"]
+    # (c) the command line on 4 ranks, map = 2 x kf = 2, with a resume; then
+    # on 2 ranks on the shipped mesh (map 1, every rank on kf).
     with tempfile.TemporaryDirectory() as tmp:
-        def cli_ranks(extra, tag):
+        def cli_ranks(config, overrides, world, extra, tag):
             import socket
 
             with socket.socket() as s:
                 s.bind(("localhost", 0))
                 port = s.getsockname()[1]
-            argv = [config, "--frames", str(cli_frames), "--ckpt-dir", os.path.join(tmp, "ck"),
+            argv = [os.path.join(ROOT, "configs", config), "--frames", str(cli_frames),
+                    "--ckpt-dir", os.path.join(tmp, "ck"),
                     "--log", os.path.join(tmp, f"{tag}.jsonl"),
                     "--trajectory", os.path.join(tmp, f"{tag}.npy"), *extra,
-                    "--set", f"parallel.coordinator=localhost:{port}"]
+                    "--set", f"parallel.coordinator=localhost:{port}",
+                    "--set", f"parallel.n_processes={world}"]
             for o in overrides:
                 argv += ["--set", o]
             t0 = time.perf_counter()
             procs = [subprocess.Popen(
                 [sys.executable, "-c", CLI_WITH_LAUNCHES, *argv, "--process-id", str(r)],
                 cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                for r in range(4)]
+                for r in range(world)]
             outs = []
             try:
                 for p in procs:
@@ -2602,14 +2765,14 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                     raise AssertionError(f"multi cli [{tag}] rank {r}: rc {p.returncode}\n"
                                          f"{so[-2000:]}\n{se[-4000:]}")
                 info = [line for line in se.splitlines()
-                        if line.startswith(("launches ", "peak "))]
+                        if line.startswith(("launches ", "peak ", "pool "))]
                 log(f"multi cli [{tag}] rank {r}: {' '.join(info)}")
                 check_route_launches(f"multi cli [{tag}] rank {r}", "fused",
                                      json.loads(info[0][len("launches "):]))
             last = json.loads(outs[0][0].strip().splitlines()[-1])
             traj = np.load(os.path.join(tmp, f"{tag}.npy"))
-            log(f"multi cli [{tag}]: 4 ranks in {dt:.1f} s (processes included); rank 0's last "
-                f"line {last}")
+            log(f"multi cli [{tag}]: {world} ranks in {dt:.1f} s (processes included); rank "
+                f"0's last line {last}")
             if not (last["frames"] == cli_frames and traj.shape == (cli_frames, 4, 4)
                     and np.isfinite(traj).all()):
                 raise AssertionError(f"multi cli [{tag}]: {last}, trajectory {traj.shape}")
@@ -2617,12 +2780,20 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                 raise AssertionError(f"multi cli [{tag}]: the track is lost: {last}")
             return traj
 
-        traj = cli_ranks([], "run")
+        overrides = ["dataset=synthetic", "sync_method=async", "tracking.method=adam",
+                     "mapping.iters_first=100", "mapping.color_refine=false",
+                     "mapping.ckpt_freq=2", "parallel.map=2", "parallel.kf=2"]
+        traj = cli_ranks("cofusion.yaml", overrides, 4, [], "run")
         ck = os.path.join(tmp, "ck", "frame_000002")
-        traj2 = cli_ranks(["--resume", ck], "resume")
+        traj2 = cli_ranks("cofusion.yaml", overrides, 4, ["--resume", ck], "resume")
         if not np.array_equal(traj2[:3], traj[:3]):
             raise AssertionError("multi cli: the resumed trajectory does not start with the "
                                  "saved one")
+        # The shipped multi-rank mesh: its mapping passes replay graphs.
+        cli_ranks("apartment_multihost.yaml",
+                  ["dataset=synthetic", "parallel.map=1", "parallel.kf=0",
+                   "mapping.pixels=4096", f"mapping.iters_first={KF_CLI_ITERS_FIRST}"],
+                  2, [], "kf-only")
 
 
 # ---------------------------------------------------------------- phase 12

@@ -36,6 +36,11 @@ On N ranks (``parallel.n_processes: N``, ``parallel.map`` x ``parallel.kf``
         --set dataset=synthetic --set parallel.n_processes=2 \
         --set parallel.map=2 --process-id $r & done; wait
 
+On the card the ranks' solves replay graphs too, and so do the mapping
+passes of a mesh with one map block (``parallel.map: 1``): each iteration
+is two graphs around the all_reduce of its gradients. With ``map > 1`` the
+passes run eagerly (their collectives sit inside the halo sampler).
+
 Only rank 0 prints, writes the trajectory, meshes, panels, checkpoints and
 the profile, and logs to ``--log``; rank ``r > 0`` logs to
 ``<log stem>.rank<r>.jsonl``. At the end every rank's trajectory must equal

@@ -18,11 +18,14 @@ one process per rank (the JAX package runs one controller per host), so
   choice is the first event the attached system logs.
 - **Attachment** (:meth:`MapKfRuntime.attach`): every grid is padded to the
   map axis (``pad_grid_for_sharding``) and the system's mapping passes run
-  the sharded program on this rank's Z blocks. The system keeps the whole
-  padded grids as its published map: after each pass the blocks are
-  assembled on every rank by one slotted all_reduce per level, and the
-  tracker, ``render_image``, the mesher and checkpoints read that copy.
-  Every rank then tracks the same pose from the same draws.
+  sharded on this rank's Z blocks: as the system's kf-sharded program
+  (CUDA graphs on a card) with ``map = 1``, eagerly with ``map > 1``
+  (:attr:`MapKfRuntime.eager_passes`). The system keeps the whole
+  padded grids as its published map: with ``map > 1`` the blocks are
+  assembled on every rank after each pass by one slotted all_reduce per
+  level, and the tracker, ``render_image``, the mesher and checkpoints
+  read that copy. Every rank then solves the same pose from the same
+  draws, through the system's programs.
 
 Fault model: all or nothing, as in the JAX package. A rank that fails
 leaves the others waiting in a collective until the process group's timeout
@@ -41,7 +44,7 @@ import torch.distributed as dist
 from ..config.schema import SLAMConfig
 from ..grid.shard import block_of
 from .mesh import MapKfMesh, all_reduce_, exchange_rows, make_mesh, mesh_shape
-from .sharded_mapper import make_sharded_run_schedule, pad_grid_for_sharding
+from .sharded_mapper import kf_slice, make_sharded_run_schedule, pad_grid_for_sharding
 
 # How long a rank waits in a collective for the others. A rank writes
 # meshes and checkpoints while the others wait at their next collective.
@@ -75,6 +78,20 @@ class MapKfRuntime:
     @property
     def trivial(self) -> bool:
         return self.mesh.trivial
+
+    @property
+    def eager_passes(self) -> bool:
+        """Whether the system's mapping passes run eagerly
+        (:attr:`run_schedule`): with ``map > 1``, whose collectives sit
+        inside the halo sampler and the TV term. With ``map = 1`` the pass's
+        one collective sits between the two halves of an iteration, and the
+        pass runs as a program of the system (:meth:`kf_slice`)."""
+        return self.mesh.n_map > 1
+
+    def kf_slice(self, n_pixels: int):
+        """This rank's part of a pass of ``n_pixels`` rays
+        (``sharded_mapper.kf_slice``)."""
+        return kf_slice(self.mesh, n_pixels)
 
     def describe(self) -> dict:
         m = self.mesh

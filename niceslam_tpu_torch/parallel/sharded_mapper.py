@@ -11,9 +11,10 @@ port's :func:`~..slam.mapper.run_schedule` row by row, on every rank of a
   state and evaluates its ``kf`` slice (``mapping_loss``'s ``ray_shard``),
   so the slices over ``kf`` are the unsharded ray set;
 - after ``autograd.grad``, the loss and the grid-block, decoder and camera
-  gradients are summed over the kf group by one ``all_reduce`` of a flat
-  buffer. Grid blocks need nothing over ``map``: each rank owns its block,
-  and the halo rows' gradients went home inside the sampler's backward.
+  gradients are written into one flat buffer and summed in place over the
+  kf group by one ``all_reduce`` (:func:`reduce_over_kf_`). Grid blocks
+  need nothing over ``map``: each rank owns its block, and the halo rows'
+  gradients went home inside the sampler's backward.
   Decoder and camera gradients are already the same over ``map``, because
   the features were summed there before the decoders saw them.
 
@@ -21,6 +22,17 @@ Adam then steps the local grid blocks and the replicated decoders and
 cameras, with the masks and per-group learning rates of ``adam_update``.
 Every rank of a kf group gets the same summed gradient, so the replicas stay
 equal bit for bit.
+
+A rank's changes to an iteration are its :func:`kf_slice`. The iteration
+splits at the all_reduce into two halves (``slam/mapper.py``:
+``mapping_grads``, ``mapping_step``), so with ``n_map = 1`` (the shipped
+mesh, ``configs/apartment_multihost.yaml``) the pass runs as a program of
+the system (``slam/programs.py``), on a card as two CUDA graphs per stage
+replayed around the eager all_reduce: the collective is the iteration's
+only one, and gloo cannot be captured. With ``n_map > 1`` the collectives
+sit inside the halo sampler's forward and backward and in the TV term, so
+the pass runs eagerly through :func:`make_sharded_run_schedule`: no graph
+holds them until NCCL runs on two or more cards.
 
 Grids must be Z-padded so that each level divides ``n_map``:
 :func:`pad_grid_for_sharding` replicates the last row and extends the z
@@ -31,13 +43,13 @@ from __future__ import annotations
 
 import contextlib
 from functools import partial
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from ..grid.shard import NextFirstRow, sample_grid_sharded
 from ..ops.trilinear import override_sampler
-from ..slam.mapper import run_schedule
+from ..slam.mapper import KfSlice, run_schedule
 from .mesh import MapKfMesh, all_reduce_
 
 
@@ -94,39 +106,42 @@ def tv_term(grids_blk: Dict[str, torch.Tensor], mesh: MapKfMesh) -> torch.Tensor
     return tv / mesh.n_kf
 
 
-def reduce_over_kf(
-    loss: torch.Tensor, grads: List[Optional[torch.Tensor]], mesh: MapKfMesh
-):
-    """``(loss, grads)`` summed over the kf group by one all_reduce of a
-    flat buffer. ``None`` (a leaf the stage does not reach) is ``None`` on
-    every rank and stays so."""
-    if mesh.n_kf == 1:
-        return loss, grads
-    parts = [loss.reshape(1)] + [g.reshape(-1) for g in grads if g is not None]
-    flat = all_reduce_(torch.cat(parts), mesh.kf_group, mesh.n_kf)
-    out, k = [], 1
-    for g in grads:
-        if g is None:
-            out.append(None)
-            continue
-        out.append(flat[k:k + g.numel()].view_as(g))
-        k += g.numel()
-    return flat[0], out
+def reduce_over_kf_(flat: torch.Tensor, mesh: MapKfMesh) -> None:
+    """Sum ``flat`` (the loss and the gradients that are not ``None``, laid
+    out by ``slam/mapper.pack_grads_``) in place over the kf group: one
+    all_reduce. The current stream is ordered after the sum when this
+    returns, over gloo and NCCL alike (``dist.all_reduce`` waits on its
+    work), so a graph replayed next reads the sum."""
+    all_reduce_(flat, mesh.kf_group, mesh.n_kf)
+
+
+def kf_slice(mesh: MapKfMesh, n_pixels: int) -> KfSlice:
+    """This rank's :class:`~..slam.mapper.KfSlice` of a pass of
+    ``n_pixels`` rays: rays ``[kf_i * n, (kf_i + 1) * n)`` of each draw,
+    ``n = n_pixels / n_kf``, the TV term of :func:`tv_term`, and
+    :func:`reduce_over_kf_` (none with one kf rank)."""
+    if n_pixels % mesh.n_kf:
+        raise ValueError(f"mapping.pixels={n_pixels} must divide the kf axis ({mesh.n_kf})")
+    n_local = n_pixels // mesh.n_kf
+    return KfSlice(
+        ray_shard=(mesh.kf_i * n_local, n_local), tv_term=partial(tv_term, mesh=mesh),
+        reduce=partial(reduce_over_kf_, mesh=mesh) if mesh.n_kf > 1 else None,
+        key=(mesh.n_map, mesh.n_kf, mesh.map_i, mesh.kf_i),
+    )
 
 
 def make_sharded_run_schedule(mesh: MapKfMesh):
     """A drop-in ``run_schedule`` (same arguments) for passes whose
     ``pp`` grids and ``grid_masks`` are this rank's Z blocks of grids padded
-    with :func:`pad_grid_for_sharding`; ``bounds`` are the padded grids'."""
+    with :func:`pad_grid_for_sharding`; ``bounds`` are the padded grids'.
+    It runs eagerly: ``NiceSLAM`` runs it with ``map > 1``, whose
+    collectives sit inside the sampler's forward and backward (with
+    ``map = 1`` it runs the kf-sharded program of ``slam/programs.py``)."""
 
     def sharded_run_schedule(pp, opt_state, sched, grid_masks, bounds, scene_bound,
                              intr, colors, depths, frame_valid, cam_fixed, pcfg,
                              rcfg, gen=None, pixels=None):
-        if pcfg.n_pixels % mesh.n_kf:
-            raise ValueError(
-                f"mapping.pixels={pcfg.n_pixels} must divide the kf axis ({mesh.n_kf})"
-            )
-        n_local = pcfg.n_pixels // mesh.n_kf
+        kf = kf_slice(mesh, pcfg.n_pixels)
         # One map block is the whole grid: the plain sampler is the halo
         # sampler without its collectives.
         sampler = (
@@ -136,10 +151,7 @@ def make_sharded_run_schedule(mesh: MapKfMesh):
         with sampler:
             return run_schedule(
                 pp, opt_state, sched, grid_masks, bounds, scene_bound, intr, colors,
-                depths, frame_valid, cam_fixed, pcfg, rcfg, gen=gen, pixels=pixels,
-                ray_shard=(mesh.kf_i * n_local, n_local),
-                tv_term=partial(tv_term, mesh=mesh),
-                reduce=partial(reduce_over_kf, mesh=mesh),
+                depths, frame_valid, cam_fixed, pcfg, rcfg, gen=gen, pixels=pixels, kf=kf,
             )
 
     return sharded_run_schedule

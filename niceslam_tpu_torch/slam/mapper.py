@@ -548,6 +548,103 @@ def start_pass(tab: PassTables, lrs: np.ndarray, pixels: torch.Tensor) -> None:
     tab.step.zero_()
 
 
+class KfSlice(NamedTuple):
+    """What a rank of a ``('map', 'kf')`` mesh changes in an iteration
+    (``parallel/sharded_mapper.py``): the rays it evaluates of each row's
+    draw (``mapping_loss``'s ``ray_shard``), ``tv_term(grids)`` in the place
+    of ``mapping_loss``'s TV sum, and ``reduce(flat)``, which sums a flat
+    buffer laid out by :func:`pack_grads_` in place over the kf group (None
+    with one kf rank). ``key`` is the rank's place in its mesh."""
+
+    ray_shard: Tuple[int, int]
+    tv_term: Callable
+    reduce: Optional[Callable]
+    key: tuple
+
+
+def new_flat(leaves: List[torch.Tensor]) -> torch.Tensor:
+    """A flat float32 buffer with room for a loss and a gradient of every
+    leaf (:func:`pack_grads_`)."""
+    return torch.zeros((1 + sum(t.numel() for t in leaves),), dtype=torch.float32,
+                       device=leaves[0].device)
+
+
+def flat_views(flat: torch.Tensor, leaves: List[torch.Tensor], has_grad):
+    """``(loss, grads, used)``: views of ``flat`` laid out with the loss
+    first, then the gradient of every leaf whose ``has_grad`` is true, in
+    leaf order (``None`` for the others), and the length they use."""
+    grads, k = [], 1
+    for t, live in zip(leaves, has_grad):
+        if not live:
+            grads.append(None)
+            continue
+        grads.append(flat[k:k + t.numel()].view(t.shape))
+        k += t.numel()
+    return flat[0], grads, k
+
+
+@torch.no_grad()
+def pack_grads_(flat: torch.Tensor, loss: torch.Tensor, grads: List[Optional[torch.Tensor]]):
+    """Write ``loss`` and the gradients that are not ``None`` into ``flat``
+    (:func:`flat_views`' layout); returns ``(loss, grads, used)`` as views of
+    ``flat``. ``None`` (a leaf the stage does not reach) stays ``None``."""
+    v_loss, v_grads, used = flat_views(flat, grads, [g is not None for g in grads])
+    live = [(v, g) for v, g in zip(v_grads, grads) if g is not None]
+    torch._foreach_copy_([v_loss] + [v for v, _ in live], [loss] + [g for _, g in live])
+    return v_loss, v_grads, used
+
+
+def mapping_grads(
+    pp: PassParams,
+    tab: PassTables,
+    inp: PassInputs,
+    intr: Intrinsics,
+    pcfg: ProgConfig,
+    rcfg: RenderConfig,
+    stage: str,
+    kf: Optional[KfSlice] = None,
+    flat: Optional[torch.Tensor] = None,
+):
+    """The first half of row ``tab.step``: that row's draws, the stage's
+    loss (on ``kf``'s ray slice with its TV term) and its gradients; returns
+    ``(loss, grads)``. With ``flat`` they are written into it
+    (:func:`pack_grads_`) and returned as its views, ``(loss, grads,
+    used)``."""
+    fidx, i, j = tab.pixels.index_select(0, tab.step)[0]
+    loss = mapping_loss(
+        pp.params, inp.bounds, inp.scene_bound, intr, inp.colors, inp.depths,
+        inp.frame_valid, inp.cam_fixed, fidx, i, j, stage, pcfg.w_color_loss, rcfg,
+        tv_weight=0.0 if kf is not None else pcfg.tv_weight,
+        fs_weight=pcfg.fs_weight, fs_band=pcfg.fs_band,
+        ray_shard=None if kf is None else kf.ray_shard,
+    )
+    if kf is not None and pcfg.tv_weight > 0.0:
+        loss = loss + pcfg.tv_weight * kf.tv_term(pp.params["grids"])
+    grads = list(torch.autograd.grad(loss, pp.leaves, allow_unused=True))
+    if flat is None:
+        return loss, grads
+    return pack_grads_(flat, loss.detach(), grads)
+
+
+def mapping_step(
+    pp: PassParams,
+    opt_state: AdamState,
+    tab: PassTables,
+    inp: PassInputs,
+    loss: torch.Tensor,
+    grads: List[Optional[torch.Tensor]],
+    zero: Tuple[bool, ...],
+) -> None:
+    """The second half of row ``tab.step``: the Adam step on ``grads`` at
+    the row's learning rates, ``loss`` into ``tab.losses``, then the step
+    counter + 1."""
+    row = (t.index_select(0, tab.step) for t in (tab.lrs, tab.c1, tab.c2))
+    adam_step(pp, grads, opt_state, *row, inp.masks, zero)
+    with torch.no_grad():
+        tab.losses.index_copy_(0, tab.step, loss.detach().reshape(1))
+        tab.step.add_(1)
+
+
 def mapping_iteration(
     pp: PassParams,
     opt_state: AdamState,
@@ -558,35 +655,24 @@ def mapping_iteration(
     rcfg: RenderConfig,
     stage: str,
     zero: Tuple[bool, ...],
-    ray_shard: Optional[Tuple[int, int]] = None,
-    tv_term: Optional[Callable] = None,
-    reduce: Optional[Callable] = None,
+    kf: Optional[KfSlice] = None,
+    flat: Optional[torch.Tensor] = None,
 ) -> None:
     """Row ``tab.step`` of a pass, in place on ``pp``, ``opt_state`` and
-    ``tab``: that row's draws, the stage's loss and its gradients, the Adam
-    step at the row's learning rates, the loss into ``tab.losses``, then the
-    step counter + 1. ``stage`` and ``zero`` (:func:`lr_zero` of the row)
-    are what the host must know; every value that changes from row to row
-    is read from the device, so a CUDA graph of one call serves every row
-    of its stage. ``ray_shard``, ``tv_term`` and ``reduce`` are
-    :func:`run_schedule`'s."""
-    fidx, i, j = tab.pixels.index_select(0, tab.step)[0]
-    loss = mapping_loss(
-        pp.params, inp.bounds, inp.scene_bound, intr, inp.colors, inp.depths,
-        inp.frame_valid, inp.cam_fixed, fidx, i, j, stage, pcfg.w_color_loss, rcfg,
-        tv_weight=0.0 if tv_term is not None else pcfg.tv_weight,
-        fs_weight=pcfg.fs_weight, fs_band=pcfg.fs_band, ray_shard=ray_shard,
-    )
-    if tv_term is not None and pcfg.tv_weight > 0.0:
-        loss = loss + pcfg.tv_weight * tv_term(pp.params["grids"])
-    grads = list(torch.autograd.grad(loss, pp.leaves, allow_unused=True))
-    if reduce is not None:
-        loss, grads = reduce(loss, grads)
-    row = (t.index_select(0, tab.step) for t in (tab.lrs, tab.c1, tab.c2))
-    adam_step(pp, grads, opt_state, *row, inp.masks, zero)
-    with torch.no_grad():
-        tab.losses.index_copy_(0, tab.step, loss.detach().reshape(1))
-        tab.step.add_(1)
+    ``tab``: :func:`mapping_grads`, then on a kf mesh ``kf.reduce`` of the
+    loss and gradients in ``flat`` (a :func:`new_flat` of ``pp.leaves``),
+    then :func:`mapping_step`. ``stage`` and ``zero`` (:func:`lr_zero` of the
+    row) are what the host must know; every value that changes from row to
+    row is read from the device, so a CUDA graph of one call serves every
+    row of its stage, and on a kf mesh one graph of each half
+    (``slam/programs.py``)."""
+    reduce = None if kf is None else kf.reduce
+    if reduce is None:
+        loss, grads = mapping_grads(pp, tab, inp, intr, pcfg, rcfg, stage, kf)
+    else:
+        loss, grads, used = mapping_grads(pp, tab, inp, intr, pcfg, rcfg, stage, kf, flat)
+        reduce(flat[:used])
+    mapping_step(pp, opt_state, tab, inp, loss, grads, zero)
 
 
 def run_schedule(
@@ -605,9 +691,7 @@ def run_schedule(
     rcfg: RenderConfig,
     gen: Optional[torch.Generator] = None,
     pixels=None,
-    ray_shard: Optional[Tuple[int, int]] = None,
-    tv_term: Optional[Callable] = None,
-    reduce: Optional[Callable] = None,
+    kf: Optional[KfSlice] = None,
 ) -> torch.Tensor:
     """Run one schedule chunk in place on ``pp`` and ``opt_state``; returns
     the per-row losses (0 on inactive rows), still on the device. Each
@@ -618,11 +702,10 @@ def run_schedule(
     by default each active row draws from ``gen``, all rows up front in row
     order (nothing else draws from ``gen`` during a pass, so these are the
     draws that row by row would give). The sharded mapping program
-    (``parallel/sharded_mapper.py``) passes three more: each row still draws
-    all ``n_pixels`` rays and evaluates its ``ray_shard``; ``tv_term(grids)``
-    takes the place of ``mapping_loss``'s TV sum; and ``reduce(loss,
-    grads)`` returns the loss and gradients summed over the ranks before
-    the Adam step.
+    (``parallel/sharded_mapper.py``) passes its rank's :class:`KfSlice`:
+    each row still draws all ``n_pixels`` rays and evaluates the rank's
+    slice, and the loss and gradients are summed over the kf group in one
+    flat buffer before the Adam step.
     """
     dev = colors.device
     rows = np.flatnonzero(sched.active)
@@ -637,13 +720,13 @@ def run_schedule(
         draws = [pixels[int(sched.iter_idx[r])] for r in rows]
     lrs = schedule_lrs(sched)[rows]
     tab = new_pass_tables(len(rows), pcfg.n_pixels, dev, count0=opt_state.count)
+    flat = None if kf is None or kf.reduce is None else new_flat(pp.leaves)
     if len(rows):
         start_pass(tab, lrs, stack_draws(draws, dev))
     for k, r in enumerate(rows):
         mapping_iteration(
             pp, opt_state, tab, inp, intr, pcfg, rcfg,
-            STAGE_ORDER[int(sched.stage_ids[r])], lr_zero(lrs[k]),
-            ray_shard=ray_shard, tv_term=tv_term, reduce=reduce,
+            STAGE_ORDER[int(sched.stage_ids[r])], lr_zero(lrs[k]), kf=kf, flat=flat,
         )
     opt_state.count += len(rows)
     pos = np.cumsum(sched.active) - 1

@@ -18,6 +18,13 @@ site it replaces:
   learning rates (the stages differentiate different leaves), replayed
   once per row of the schedule; the device step counter picks each
   iteration's row of the tables;
+- a mapping pass on a ``('map', 'kf')`` mesh with one map block
+  (``parallel/sharded_mapper.py:327``): the same :class:`MappingProgram`
+  with the rank's :class:`~.mapper.KfSlice`, two graphs per stage and set
+  of zero learning rates, one of each half of the iteration
+  (:func:`~.mapper.mapping_grads`, :func:`~.mapper.mapping_step`),
+  replayed around the eager all_reduce of the flat gradient buffer
+  between them;
 - keyframe selection (``slam/keyframes.py:42``) and the frustum masks
   (``slam/keyframes.py:87``, one program per window size and map):
   :meth:`Programs.overlap_percentages`, :meth:`Programs.frustum_masks`;
@@ -31,9 +38,12 @@ site it replaces:
 
 Keyframe selection, the frustum masks, ``render_image`` and the mesher's
 chunks are :class:`StaticProgram` s, functions without state of their own.
-The sharded mapping program (``parallel/sharded_mapper.py:328``) runs
-eagerly: its gradients meet in ``all_reduce`` calls that gloo cannot
-capture.
+No graph holds a collective: gloo cannot be captured, and NCCL refuses two
+ranks on one card. So under a multi-rank runtime the solves, the keyframe
+programs and the passes with one map block replay graphs, and the passes
+with ``map > 1``, whose collectives sit inside the halo sampler, run
+eagerly (``parallel/sharded_mapper.py``). Ranks capture in any order and
+replay in the same order.
 
 Who owns them: a ``NiceSLAM`` owns its programs (solves, passes, keyframe
 programs), ``pretrain_decoders.pretrain`` owns the recipe's, released with
@@ -84,13 +94,18 @@ from ..ops.trilinear import get_sampler_route
 from . import keyframes as kf_mod
 from .mapper import (
     STAGE_ORDER,
+    KfSlice,
     PassInputs,
     ProgConfig,
     Schedule,
+    flat_views,
     init_opt_state,
     lr_zero,
     make_pass_params,
+    mapping_grads,
     mapping_iteration,
+    mapping_step,
+    new_flat,
     new_pass_tables,
     schedule_lrs,
     start_pass,
@@ -329,16 +344,18 @@ class Programs:
                           intr, bounds, grids).warm()
 
     def map_program(self, signature, device, pcfg: ProgConfig, intr, rcfg, grids,
-                    decoders, cams, rows: int) -> "MappingProgram":
+                    decoders, cams, rows: int, kf: Optional[KfSlice] = None
+                    ) -> "MappingProgram":
         """The program of this pass's signature (``signature`` names it in
         the capture records), made on first use from these parameters'
-        shapes with room for ``rows`` rows."""
+        shapes with room for ``rows`` rows; ``kf`` is the rank's slice of a
+        pass on a mesh with one map block."""
         key = (indexed_device(device), get_sampler_route(), pcfg, cams.shape[0],
-               tuple(tuple(g.shape) for g in grids.values()))
+               tuple(tuple(g.shape) for g in grids.values()), kf and kf.key)
         prog = self.mapping.get(key)
         if prog is None:
             prog = self.mapping[key] = MappingProgram(
-                self, key[0], signature, pcfg, intr, rcfg, grids, decoders, cams, rows)
+                self, key[0], signature, pcfg, intr, rcfg, grids, decoders, cams, rows, kf)
         return prog
 
     def track_program(self, device, cfg: TrackConfig, intr, rcfg, params,
@@ -401,12 +418,19 @@ class MappingProgram:
     """One mapping signature on one device: the pass's parameters, Adam
     moments, inputs and tables as static buffers (``pp``, ``opt``, ``inp``,
     ``tab``), and one graph of :func:`~.mapper.mapping_iteration` per (stage,
-    zero learning rates)."""
+    zero learning rates).
+
+    With a :class:`~.mapper.KfSlice` that sums over other ranks (``kf``), a
+    static ``flat`` buffer holds an iteration's loss and gradients, and each
+    (stage, zero learning rates) has two graphs, one per half of the
+    iteration; :meth:`run` replays the first, sums ``flat`` over the kf
+    group eagerly, then replays the second. Which gradients a stage has
+    (the flat layout) is known from the first call of its first half."""
 
     def __init__(self, programs: Programs, device: torch.device, signature, pcfg: ProgConfig,
-                 intr, rcfg, grids, decoders, cams, rows: int):
+                 intr, rcfg, grids, decoders, cams, rows: int, kf: Optional[KfSlice] = None):
         self.programs, self.device, self.signature = programs, device, signature
-        self.pcfg, self.intr, self.rcfg = pcfg, intr, rcfg
+        self.pcfg, self.intr, self.rcfg, self.kf = pcfg, intr, rcfg, kf
         self.pp = make_pass_params(grids, decoders, cams, pcfg)
         self.opt = init_opt_state(self.pp)
         F = cams.shape[0]
@@ -421,6 +445,9 @@ class MappingProgram:
                    if pcfg.frustum else None),
         )
         self.tab = new_pass_tables(rows, pcfg.n_pixels, device)
+        self.split = kf is not None and kf.reduce is not None
+        self.flat = new_flat(self.pp.leaves) if self.split else None
+        self.layouts: Dict[tuple, Tuple[bool, ...]] = {}
         self.graphs: Dict[tuple, tuple] = {}
 
     def _load(self, grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
@@ -449,26 +476,53 @@ class MappingProgram:
         start_pass(self.tab, lrs, pixels)
         self.opt.count = 0
 
-    def _graph(self, stage: str, zero: Tuple[bool, ...]):
+    def _capture(self, stage: str, zero: Tuple[bool, ...], half: str, body):
+        F, refine, ba = self.signature
+        return self.programs.capture_graph(
+            self.device,
+            f"map F={F} refine={int(refine)} ba={int(ba)} stage={stage}{half} "
+            f"route={get_sampler_route()} {self.device}",
+            body, self.buffers,
+        )
+
+    def _graphs(self, stage: str, zero: Tuple[bool, ...]):
+        """The graph of an iteration, or with ``split`` the graphs of its two
+        halves, of (``stage``, ``zero``), captured at first use."""
         key = (stage, zero)
         if key not in self.graphs:
-            F, refine, ba = self.signature
-            self.graphs[key] = self.programs.capture_graph(
-                self.device,
-                f"map F={F} refine={int(refine)} ba={int(ba)} stage={stage} "
-                f"route={get_sampler_route()} {self.device}",
-                lambda: self._iterate(stage, zero), self.buffers,
-            )
+            if not self.split:
+                self.graphs[key] = (self._capture(
+                    stage, zero, "", lambda: self._iterate(stage, zero)),)
+            else:
+                kf = ",".join(str(k) for k in self.kf.key)
+                self.graphs[key] = (
+                    self._capture(stage, zero, f" kf={kf} grads",
+                                  lambda: self._grads(stage, zero)),
+                    self._capture(stage, zero, f" kf={kf} step",
+                                  lambda: self._step(stage, zero)),
+                )
         return self.graphs[key]
 
     def buffers(self) -> List[torch.Tensor]:
         """What an iteration writes: the parameters, the moments, the
-        losses and the step counter."""
-        return [*self.pp.leaves, *self.opt.mu, *self.opt.nu, self.tab.losses, self.tab.step]
+        losses, the step counter and, with ``split``, the flat buffer."""
+        return [*self.pp.leaves, *self.opt.mu, *self.opt.nu, self.tab.losses, self.tab.step,
+                *([self.flat] if self.split else [])]
 
     def _iterate(self, stage: str, zero: Tuple[bool, ...]) -> None:
         mapping_iteration(self.pp, self.opt, self.tab, self.inp, self.intr, self.pcfg,
-                          self.rcfg, stage, zero)
+                          self.rcfg, stage, zero, kf=self.kf, flat=self.flat)
+
+    def _grads(self, stage: str, zero: Tuple[bool, ...]) -> None:
+        """The first half into ``flat``; records the stage's layout."""
+        _, grads, _ = mapping_grads(self.pp, self.tab, self.inp, self.intr, self.pcfg,
+                                    self.rcfg, stage, self.kf, self.flat)
+        self.layouts[stage, zero] = tuple(g is not None for g in grads)
+
+    def _step(self, stage: str, zero: Tuple[bool, ...]) -> None:
+        """The second half on ``flat``, summed over the kf group."""
+        loss, grads, _ = flat_views(self.flat, self.pp.leaves, self.layouts[stage, zero])
+        mapping_step(self.pp, self.opt, self.tab, self.inp, loss, grads, zero)
 
     @staticmethod
     def _runs(sched: Schedule, lrs: np.ndarray):
@@ -497,10 +551,19 @@ class MappingProgram:
                     for _ in range(count):
                         self._iterate(stage, zero)
                     continue
-                graph, delta = self._graph(stage, zero)
-                for _ in range(count):
-                    graph.replay()
-                add_replays(delta, count)
+                graphs = self._graphs(stage, zero)
+                if not self.split:
+                    for _ in range(count):
+                        graphs[0][0].replay()
+                else:
+                    _, _, used = flat_views(self.flat, self.pp.leaves,
+                                            self.layouts[stage, zero])
+                    for _ in range(count):
+                        graphs[0][0].replay()
+                        self.kf.reduce(self.flat[:used])
+                        graphs[1][0].replay()
+                for _, delta in graphs:
+                    add_replays(delta, count)
         self.opt.count = len(sched)
         out = clone_tree(self.pp.params)
         return out["grids"], out["decoders"], out["cams"], self.tab.losses[:len(sched)].clone()
@@ -508,14 +571,15 @@ class MappingProgram:
     def warm(self, grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
              frame_valid: np.ndarray, cam_fixed: np.ndarray, sched: Schedule,
              pixels: torch.Tensor) -> None:
-        """Capture the graph of every run of ``sched`` (with capture on) on
-        these inputs, without running the pass."""
+        """Capture the graphs of every run of ``sched`` (with capture on) on
+        these inputs, without running the pass; nothing is summed over the
+        ranks."""
         lrs = schedule_lrs(sched)
         self._load(grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
                    frame_valid, cam_fixed, lrs, pixels)
         if self.programs.capture:
             for (stage, zero), _ in self._runs(sched, lrs):
-                self._graph(stage, zero)
+                self._graphs(stage, zero)
 
 
 class TrackProgram:

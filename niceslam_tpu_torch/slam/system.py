@@ -39,13 +39,15 @@ multi-rank runtime attached with ``MapKfRuntime.attach``
 (``parallel/runtime.py``) runs every mapping pass sharded over its
 ('map', 'kf') mesh and turns both roles off, as in the JAX package.
 
-Programs (``slam/programs.py``): every pose solve, every single-device
-mapping pass, the keyframe overlap and the frustum masks run as programs
-over static buffers; on a card (``capture``, on by default there) each
-iteration or call is a replay of a captured CUDA graph, the counterpart of
-the JAX package's jitted programs, and :meth:`NiceSLAM.precompile` captures
-every signature before frame 0. A multi-rank runtime's passes and solves
-run eagerly.
+Programs (``slam/programs.py``): every pose solve, every mapping pass, the
+keyframe overlap and the frustum masks run as programs over static
+buffers; on a card (``capture``, on by default there) each iteration or
+call is a replay of a captured CUDA graph, the counterpart of the JAX
+package's jitted programs, and :meth:`NiceSLAM.precompile` captures every
+signature before frame 0. Under a multi-rank runtime with one map block a
+pass's iteration is two graphs around the kf all_reduce; with ``map > 1``
+the passes run eagerly (``MapKfRuntime.eager_passes``: their collectives
+sit inside the halo sampler, and no graph holds a collective).
 
 Randomness: grid/decoder init draws from a CPU ``torch.Generator`` seeded
 with ``seed``; tracker, mapper and overlap pixel draws from a generator on
@@ -102,7 +104,7 @@ from .state import (
     restore_keyframes,
     snapshot_keyframes,
 )
-from .tracker import draw_track_pixels, track_config, track_frame
+from .tracker import draw_track_pixels, track_config
 
 
 class NiceSLAM:
@@ -341,14 +343,10 @@ class NiceSLAM:
         """The pose solve of ``frame`` from ``init`` on the published map,
         through the program of its device (``td``, the tracker role's, or
         the main one), on draws from the main generator; returns ``(c2w,
-        losses)`` on the main device. With a multi-rank runtime it runs
-        eagerly (``track_frame``)."""
-        if self._runtime is not None:
-            st = self.state
-            return track_frame(
-                st.decoders, st.grids, self.bounds, self.scene_bound, self.intr,
-                frame.color, frame.depth, init, self.tcfg, self.rcfg, gen=self.gen,
-            )
+        losses)`` on the main device. Under a multi-rank runtime too: every
+        rank holds the whole padded map and draws from the same generator
+        state, so every rank solves the same pose, and the solve holds no
+        collective."""
         dev, (decs, grids, bounds, sbound) = self._track_map(td)
         pixels = stack_draws(draw_track_pixels(self.gen, self.intr, self.tcfg, self.device), dev)
         prog = self._programs.track_program(dev, self.tcfg, self.intr, self.rcfg, decs, grids)
@@ -505,6 +503,11 @@ class NiceSLAM:
             fs_band=m.fs_band,
         )
 
+    def _kf_slice(self, pcfg: ProgConfig):
+        """The runtime's slice of a pass (``MapKfRuntime.kf_slice``), or
+        None without a runtime."""
+        return None if self._runtime is None else self._runtime.kf_slice(pcfg.n_pixels)
+
     # ------------------------------------------------------------ precompile
     def _precompile_signatures(self):
         """Every ``(F, refine, ba)`` mapping signature a run can meet, as the
@@ -536,10 +539,11 @@ class NiceSLAM:
         capacity (with ``keyframe_selection_method: overlap``) and the frustum
         masks of every window size a pass with frustum feature selection
         meets. A signature met later (the first pass with decoders trained by
-        ``mapping.decoder_train: init``) is captured when it is met. With a
-        multi-rank runtime attached, passes run eagerly: nothing to do."""
-        if self._runtime is not None:
-            return
+        ``mapping.decoder_train: init``) is captured when it is met. Under a
+        multi-rank runtime the same, with the rank's kf-sharded mapping
+        programs (the two halves of each stage), issuing no collective; with
+        ``map > 1`` the passes run eagerly, and no mapping program is
+        made."""
         m = self.cfg.mapping
         H, W = self.intr.H, self.intr.W
         ones = lambda *shape: torch.ones(shape, device=self.device)  # noqa: E731
@@ -562,6 +566,8 @@ class NiceSLAM:
             self.intr, self._bounds_host, st.grids, st.keyframes.est_c2w,
             sorted({F for F, refine, _ in sigs if m.frustum_feature_selection and not refine}),
             m.keyframe_selection_method == "overlap")
+        if self._runtime is not None and self._runtime.eager_passes:
+            return
         for F, refine, ba in sigs:
             mcfg = self._make_mcfg(ba, refine, 1.0)
             pcfg = self._make_pcfg(mcfg)
@@ -582,7 +588,7 @@ class NiceSLAM:
                          for lvl, g in grids.items()}
                 prog = self._programs.map_program(
                     (F, refine, ba), dev, pcfg, self.intr, self.rcfg, grids, decoders, cams,
-                    rows=rows)
+                    rows=rows, kf=self._kf_slice(pcfg))
                 prog.warm(grids, decoders, cams, masks, bounds, self.scene_bound.to(dev),
                           ones(F, H, W, 3).to(dev), ones(F, H, W).to(dev),
                           np.ones((F,), bool), np.ones((F,), bool), sched,
@@ -664,7 +670,7 @@ class NiceSLAM:
         pcfg = self._make_pcfg(mcfg)
         decoders, bounds, scene_bound = self.state.decoders, self.bounds, self.scene_bound
         rt = self._runtime
-        if rt is None:
+        if rt is None or not rt.eager_passes:
             sched = schedule_arrays(plan, mcfg)
             # Every row's draws up front, on the main generator, in row order.
             dev = self.device if device is None else device
@@ -682,11 +688,12 @@ class NiceSLAM:
                 )
             prog = self._programs.map_program(
                 (F, refine, ba), dev, pcfg, self.intr, self.rcfg, grids, decoders, cams,
-                rows=len(sched))
+                rows=len(sched), kf=self._kf_slice(pcfg))
             new_grids, new_decoders, new_cams, losses = prog.run(
                 grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
                 valid, fixed, sched, pixels)
         else:
+            # map > 1: the eager sharded pass, in chunks of the staged pass.
             n_total = sum(n for _, n, _ in plan)
             chunks, reals = chunked_schedule(plan, mcfg, min(m.iters, n_total))
             pp = make_pass_params(rt.split(grids), decoders, cams, pcfg)

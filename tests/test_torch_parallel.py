@@ -5,10 +5,16 @@ errors, the tracker/mapper role split and the coarse stage expert on
 ``[cpu, cpu]`` (bit for bit against the plain run), and the command line on
 two ranks with a checkpoint, a resume and a restore at another ``map``.
 
-One spawn per world (2 ranks: ``(map, kf) = (2, 1), (1, 2)``; 4 ranks:
-``(2, 2)`` with the TV term) from a module-scoped fixture; each case is its
-own test on the fixture's results. The JAX side runs here on the suite's
-virtual CPU devices, once per mesh shape.
+On a ``(1, 2)`` mesh also the system's kf-sharded mapping program against
+the eager sharded pass on both sampler routes, and a runtime-attached
+``NiceSLAM`` through its programs (and after ``precompile``) against the
+eager runtime path, strict and async, bit for bit.
+
+One spawn per world (2 ranks: ``(map, kf) = (2, 1), (1, 2)``, the kf
+program and the system; 4 ranks: ``(2, 2)`` with the TV term) from a
+module-scoped fixture; each case is its own test on the fixture's
+results. The JAX side runs here on the suite's virtual CPU devices, once
+per mesh shape.
 """
 import dataclasses
 import json
@@ -69,6 +75,9 @@ N_PIXELS, ITERS, TV = 64, 4, 0.05
 # (n_map, n_kf, tv_weight); the world of each is n_map * n_kf ranks.
 CASES = ((2, 1, 0.0), (1, 2, 0.0), (2, 2, TV))
 IDS = [f"map{m}-kf{k}{'-tv' if tv else ''}" for m, k, tv in CASES]
+ROUTES = ("fused", "packed")
+SYNCS = ("strict", "async")
+SLAM_FRAMES = 5
 
 
 def _world():
@@ -129,17 +138,52 @@ def world():
     return _world()
 
 
+def _kf_program_args(world, route):
+    """A staged pass of every stage and a coarse pass, with the TV term, on
+    ``route``, for ``kf_program_job`` (rows in chunks of 3)."""
+    a, _ = _port_args(world, TV)
+    stage_lr = MappingConfig().stage_lr
+    mcfg = mapper.MapOptConfig(BA=True, train_all_decoders=True, lr_factor=1.0)
+    a.update(route=route, chunk=3, plans={
+        "staged": (mapper.build_stage_plan(ITERS, 0.4, 0.6, stage_lr), mcfg),
+        "coarse": (mapper.build_stage_plan(2, 0.4, 0.6, stage_lr, coarse=True), mcfg)})
+    return a
+
+
+def _slam_cfg():
+    """The programs suite's tiny system (``configs/cofusion.yaml``: coarse
+    pass, BA, color refinement) on two kf ranks: 48 rays a row."""
+    from test_torch_programs import CONFIG, TINY
+
+    return load_config(CONFIG, overrides={**TINY, "parallel.n_processes": 2})
+
+
 @pytest.fixture(scope="module")
-def sharded(world, tmp_path_factory):
-    """``out[case][rank]``: every rank's losses, assembled grids, decoder
-    leaves and cameras."""
+def spawned(world, tmp_path_factory):
+    """``out[job][rank]`` for one spawn per world: the sharded mapping pass
+    of each case (``out[case]``); on 2 ranks also the kf-sharded program
+    against the eager pass on each route (``out["kf_program", route]``) and
+    the runtime-attached system (``out["slam"]``)."""
     out = {}
     for n in (2, 4):
         cases = [c for c in CASES if c[0] * c[1] == n]
         jobs = [("mapping", m, k, _port_args(world, tv)[0]) for m, k, tv in cases]
-        for c, res in zip(cases, run_ranks(n, jobs, tmp_path_factory.mktemp(f"map{n}"))):
-            out[c] = res
+        names = list(cases)
+        if n == 2:
+            jobs += [("kf_program", 1, 2, _kf_program_args(world, r)) for r in ROUTES]
+            names += [("kf_program", r) for r in ROUTES]
+            jobs.append(("slam", 1, 2, dict(cfg=_slam_cfg(), frames=SLAM_FRAMES, seed=3,
+                                            syncs=SYNCS)))
+            names.append("slam")
+        out.update(zip(names, run_ranks(n, jobs, tmp_path_factory.mktemp(f"map{n}"))))
     return out
+
+
+@pytest.fixture(scope="module")
+def sharded(spawned):
+    """``out[case][rank]``: every rank's losses, assembled grids, decoder
+    leaves and cameras."""
+    return {c: spawned[c] for c in CASES}
 
 
 def _unsharded(world, tv):
@@ -245,6 +289,78 @@ def test_sharded_run_schedule_matches_jax(sharded, jax_sharded, case):
     itself is held to 2e-5 against the port unsharded above."""
     _hold(sharded[case][0], jax_sharded[case], f"{case} vs JAX",
           loss_tol=(2e-4, 1e-5), tol=(0.0, 1e-4))
+
+
+# ------------------------------------------------- the kf-sharded program
+def _ranks_agree(ranks):
+    for r in ranks[1:]:
+        for key in ranks[0]:
+            np.testing.assert_array_equal(r[key], ranks[0][key], err_msg=key)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_kf_program_equals_the_eager_sharded_pass(spawned, route):
+    """On a 1 x 2 mesh, a staged pass of every stage and then a coarse pass
+    through one kf-sharded ``MappingProgram`` (capture off: the body that a
+    card replays as two graphs around the all_reduce) equal
+    ``rt.run_schedule`` in chunks, bit for bit: losses, grids, decoders and
+    cameras, on every rank, on both sampler routes."""
+    ranks = spawned["kf_program", route]
+    _ranks_agree(ranks)
+    got = ranks[0]
+    program = [k for k in got if "/program/" in k]
+    assert len(program) == len([k for k in got if "/eager/" in k]) > 8
+    for key in program:
+        np.testing.assert_array_equal(got[key], got[key.replace("/program/", "/eager/")],
+                                      err_msg=key)
+    for which, n in (("staged", ITERS), ("coarse", 2)):
+        assert got[f"{which}/program/loss"].shape == (n,)
+        assert np.isfinite(got[f"{which}/program/loss"]).all()
+    # The coarse pass trained the coarse grid, which the staged pass leaves.
+    assert not np.array_equal(got["coarse/program/grid/coarse"],
+                              got["staged/program/grid/coarse"])
+
+
+@pytest.mark.parametrize("sync", SYNCS)
+def test_runtime_system_through_programs_equals_the_eager_runtime_path(spawned, sync):
+    """A ``NiceSLAM`` on a 1 x 2 mesh (capture off) through its programs,
+    the pose solve in ``TrackProgram`` and every pass in the kf-sharded
+    program, gives the trajectory and grids of the eager runtime path
+    (``track_frame`` and ``rt.run_schedule`` per chunk) bit for bit, on
+    every rank, in strict and async sync."""
+    ranks = spawned["slam"]
+    _ranks_agree(ranks)
+    got = ranks[0]
+    keys = [k for k in got if k.startswith(f"programs/{sync}/")
+            and k.split("/")[2] in ("poses", "grid")]
+    assert len(keys) == 5
+    for key in keys:
+        np.testing.assert_array_equal(got[key], got[key.replace("programs/", "eager/", 1)],
+                                      err_msg=key)
+    poses = got[f"programs/{sync}/poses"]
+    assert poses.shape == (SLAM_FRAMES, 4, 4) and np.isfinite(poses).all()
+    assert int(got[f"programs/{sync}/map_events"]) > SLAM_FRAMES
+    assert int(got[f"programs/{sync}/tracking_programs"]) == 1
+    assert int(got[f"programs/{sync}/mapping_programs"]) >= 2  # the window and refinement
+
+
+def test_precompile_under_a_runtime_draws_nothing(spawned):
+    """``precompile()`` on a 1 x 2 mesh makes the solve's program, the
+    keyframe programs and the kf-sharded mapping program of every JAX
+    signature, draws nothing from the system's generator, issues no
+    collective, and leaves the trajectory and grids as they were."""
+    got = spawned["slam"][0]
+    assert not got["precompile/drew"]
+    assert int(got["precompile/tracking"]) == 1
+    cfg = _slam_cfg()
+    slam = NiceSLAM(cfg, reader=SyntheticBoxReader(cfg, n_frames=2), device="cpu")
+    assert [tuple(s) for s in got["precompile/mapping"].tolist()] == sorted(
+        slam._precompile_signatures())
+    assert bool(got["precompile/mapping_kf"])
+    assert list(got["precompile/static"]) == ["frustum_masks", "keyframe_overlap"]
+    for key in [k for k in got if k.startswith("precompiled/")]:
+        np.testing.assert_array_equal(
+            got[key], got[key.replace("precompiled/", "programs/", 1)], err_msg=key)
 
 
 # ---------------------------------------------------------------- runtime

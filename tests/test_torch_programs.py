@@ -596,3 +596,53 @@ def test_every_program_makes_its_buffers_before_its_capture(world, fake_card):
     assert kinds == {"map", "track", "keyframe_overlap", "frustum_masks", "render_chunk",
                      "mesher_chunk", "pretrain"}
     assert len(fake_card) == len(progs.captures) and len(set(fake_card)) == 1
+
+
+def test_kf_program_captures_both_halves_into_the_card_pool(fake_card, tmp_path):
+    """A system on a 1 x 2 mesh (no process group: a collective would
+    raise) precompiled with capture on, through the host stand-ins: each
+    stage's kf-sharded iteration is two captures, its gradients into the
+    flat buffer and its Adam step, all on the card's one stream into its
+    one pool; no capture makes a buffer (it would raise), none issues a
+    collective, and the warm-ups leave the map and the generator as they
+    were. A restore of a snapshot padded for another map extent gives the
+    grids other shapes: the programs are made and captured anew for
+    them."""
+    from niceslam_tpu_torch.parallel.mesh import MapKfMesh
+    from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+    from niceslam_tpu_torch.parallel.sharded_mapper import pad_grid_for_sharding
+    from niceslam_tpu_torch.utils.checkpoint import save_checkpoint
+
+    system = _slam(**{"parallel.n_processes": 2})
+    MapKfRuntime(MapKfMesh(1, 2, 0, 0), "cpu", None).attach(system)
+    system._programs = progs = programs.Programs(capture=True)
+    before = tree_map(torch.clone, (system.state.grids, system.state.decoders))
+    state = system.gen.get_state()
+    system.precompile()
+    assert _equal_trees((system.state.grids, system.state.decoders), before)
+    assert torch.equal(system.gen.get_state(), state)
+    maps = [c.signature for c in progs.captures if c.signature.startswith("map ")]
+    halves = {" ".join(w for w in sig.split() if not w.startswith("kf=")) for sig in maps}
+    grads = {sig.replace(" grads ", " ") for sig in halves if " grads " in sig}
+    steps = {sig.replace(" step ", " ") for sig in halves if " step " in sig}
+    assert grads and grads == steps and len(maps) == 2 * len(grads)
+    assert all(" kf=1,2,0,0 " in sig for sig in maps)
+    for prog in progs.mapping.values():
+        assert prog.split and any(t is prog.flat for t in prog.buffers())
+        assert set(prog.layouts) == {k for k in prog.graphs}
+    assert len(fake_card) == len(progs.captures) and len(set(fake_card)) == 1
+
+    shapes = {lvl: g.shape for lvl, g in system.state.grids.items()}
+    padded = {lvl: pad_grid_for_sharding(g, system.bounds[lvl], 8)
+              for lvl, g in system.state.grids.items()}
+    assert any(padded[lvl][0].shape != shapes[lvl] for lvl in shapes)
+    system.state.grids = {lvl: g for lvl, (g, _) in padded.items()}
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, system.state, [np.eye(4, dtype=np.float32)], [None], 0,
+                    bounds={lvl: b for lvl, (_, b) in padded.items()},
+                    scene_bound=system.scene_bound)
+    n_maps, n_tracks, n_captures = len(progs.mapping), len(progs.tracking), len(progs.captures)
+    system.restore(ck)
+    system.precompile()
+    assert len(progs.mapping) == 2 * n_maps and len(progs.tracking) == 2 * n_tracks
+    assert len(progs.captures) > n_captures

@@ -137,4 +137,131 @@ def mapping_job(n_map, n_kf, p):
     return out
 
 
-JOBS = {"halo": halo_job, "mapping": mapping_job}
+def kf_program_job(n_map, n_kf, p):
+    """On a mesh with one map block, a staged pass (every stage) and then a
+    coarse pass of ``p``'s world through one kf-sharded ``MappingProgram``
+    (capture off) and through ``rt.run_schedule`` in chunks of ``p["chunk"]``
+    rows, on the route ``p["route"]``: each one's losses, grids, decoder
+    leaves and cameras, keyed ``program/...`` and ``eager/...``."""
+    from niceslam_tpu_torch.models.decoders import tree_leaves
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+    from niceslam_tpu_torch.parallel.mesh import make_mesh
+    from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+    from niceslam_tpu_torch.slam import mapper
+    from niceslam_tpu_torch.slam.programs import Programs
+
+    rt = MapKfRuntime(make_mesh(n_map, n_kf), "cpu", "gloo")
+    grids, masks, dec, cams = (_t(p[k]) for k in ("grids", "masks", "decoders", "cams"))
+    bounds, sb, colors, depths = (_t(p[k]) for k in ("bounds", "scene_bound", "colors",
+                                                       "depths"))
+    args = (p["intr"], colors, depths, p["valid"], p["fixed"], p["pcfg"], p["rcfg"])
+    progs = Programs(capture=False)
+    out = {}
+    with sampler_route(p["route"]):
+        for which, (plan, mcfg) in p["plans"].items():
+            sched = mapper.schedule_arrays(plan, mcfg)
+            draws = [tuple(torch.from_numpy(a).long() for a in p["pixels"][it])
+                     for it in range(len(sched))]
+            pp = mapper.make_pass_params(grids, dec, cams, p["pcfg"])
+            opt = mapper.init_opt_state(pp)
+            chunks, reals = mapper.chunked_schedule(plan, mcfg, p["chunk"])
+            losses = torch.cat([
+                rt.run_schedule(pp, opt, c, masks, bounds, sb, *args,
+                                pixels=dict(enumerate(draws)))[:real]
+                for c, real in zip(chunks, reals)])
+            prog = progs.map_program((cams.shape[0], False, True), "cpu", p["pcfg"],
+                                     p["intr"], p["rcfg"], grids, dec, cams, len(sched),
+                                     kf=rt.kf_slice(p["pcfg"].n_pixels))
+            got = prog.run(grids, dec, cams, masks, bounds, sb, colors, depths, p["valid"],
+                           p["fixed"], sched, mapper.stack_draws(draws, "cpu"))
+            for kind, (g, d, c, lo) in (("eager", (pp.params["grids"], pp.params["decoders"],
+                                                    pp.params["cams"], losses)),
+                                        ("program", got)):
+                out[f"{which}/{kind}/loss"] = lo
+                out[f"{which}/{kind}/cams"] = c
+                out.update({f"{which}/{kind}/grid/{k}": v for k, v in g.items()})
+                out.update({f"{which}/{kind}/dec/{n}": t
+                            for n, t in enumerate(tree_leaves(d))})
+    assert len(progs.mapping) == 1
+    return out
+
+
+def _eager_runtime(mesh):
+    """A runtime whose passes run eagerly whatever its mesh, as every
+    runtime's did before the kf-sharded program: the reference of
+    :func:`slam_job`."""
+    from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+
+    class EagerRuntime(MapKfRuntime):
+        eager_passes = True
+
+    return EagerRuntime(mesh, "cpu", "gloo")
+
+
+def _eager_runtime_slam():
+    """``NiceSLAM`` as it ran under a runtime before its programs: the pose
+    solve by ``track_frame`` on the published map, the passes by
+    ``rt.run_schedule`` per chunk."""
+    from niceslam_tpu_torch.slam.system import NiceSLAM
+    from niceslam_tpu_torch.slam.tracker import track_frame
+
+    class EagerRuntimeSLAM(NiceSLAM):
+        def _solve(self, frame, init, td=None):
+            st = self.state
+            return track_frame(st.decoders, st.grids, self.bounds, self.scene_bound,
+                               self.intr, frame.color, frame.depth, init, self.tcfg,
+                               self.rcfg, gen=self.gen)
+
+    return EagerRuntimeSLAM
+
+
+def slam_job(n_map, n_kf, p):
+    """A runtime-attached ``NiceSLAM`` on the CPU (capture off) over
+    ``p["frames"]`` frames of the synthetic scene, for each sync method of
+    ``p["syncs"]``: through its programs (``programs/<sync>/...``), as the
+    eager runtime path (``eager/<sync>/...``) and, for the first sync
+    method, through its programs after ``precompile()`` (``precompiled/...``,
+    with whether ``precompile`` moved the generator and the programs it
+    made)."""
+    import dataclasses
+
+    from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
+    from niceslam_tpu_torch.parallel.mesh import make_mesh
+    from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+    from niceslam_tpu_torch.slam.system import NiceSLAM
+
+    rt = MapKfRuntime(make_mesh(n_map, n_kf), "cpu", "gloo")
+    out = {}
+    for k, sync in enumerate(p["syncs"]):
+        cfg = dataclasses.replace(p["cfg"], sync_method=sync)
+        runs = [("programs", NiceSLAM, rt), ("eager", _eager_runtime_slam(),
+                                             _eager_runtime(rt.mesh))]
+        if k == 0:
+            runs.append(("precompiled", NiceSLAM, rt))
+        for kind, cls, runtime in runs:
+            slam = cls(cfg, reader=SyntheticBoxReader(cfg, n_frames=p["frames"]), seed=p["seed"],
+                       device="cpu")
+            runtime.attach(slam)
+            if kind == "precompiled":
+                state = slam.gen.get_state()
+                slam.precompile()
+                progs = slam._programs
+                out["precompile/drew"] = not torch.equal(slam.gen.get_state(), state)
+                out["precompile/tracking"] = len(progs.tracking)
+                out["precompile/mapping"] = sorted(prog.signature for prog in progs.mapping.values())
+                out["precompile/mapping_kf"] = all(key[5] == rt.kf_slice(cfg.mapping.pixels).key
+                                                   for key in progs.mapping)
+                out["precompile/static"] = sorted(key[0].split()[0] for key in progs.static)
+            res = slam.run(p["frames"])
+            tag = f"{kind}/{sync}"
+            out[f"{tag}/poses"] = np.stack(res["est_c2w"])
+            out.update({f"{tag}/grid/{lvl}": g for lvl, g in slam.state.grids.items()})
+            out[f"{tag}/map_events"] = sum(e["event"] == "map" for e in slam.events)
+            if kind == "programs":
+                out[f"{tag}/mapping_programs"] = len(slam._programs.mapping)
+                out[f"{tag}/tracking_programs"] = len(slam._programs.tracking)
+    return out
+
+
+JOBS = {"halo": halo_job, "mapping": mapping_job, "kf_program": kf_program_job,
+        "slam": slam_job}
