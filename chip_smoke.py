@@ -124,12 +124,18 @@ prints no result):
    prints its seconds, peak memory, launches and its time in all_reduce.
    At (1, 2) the same pass also runs as the system's kf-sharded program
    (two CUDA graphs per stage around the eager all_reduce), which must
-   equal the eager pass bit for bit, launches included; ms per iteration
-   and all_reduce ms per iteration both ways. On the 2 ranks, ``NiceSLAM``
-   attached to a (1, 2) mesh at the bench configuration, ``precompile``
-   and the main path's frames graphed, then with ``capture=False``: every
-   run's digest equal, no collective in ``precompile``, seconds per frame
-   both ways, each rank's graph pool and peak memory.
+   equal the eager pass bit for bit, launches included; at (2, 1) and
+   (2, 2) as the system's map-sharded program (``MapSegments``: 4 or 5
+   graphs per stage around 3 or 4 eager all_reduces), graphed against its
+   own bodies with ``capture=False``, bit for bit, launches included, and
+   held against the unsharded pass as the eager pass is; ms per
+   iteration, all_reduce ms and calls per iteration (the segment plan's:
+   1, 3, 4), the captures, the graph pool and peak memory of each rank. On
+   the 2 ranks, ``NiceSLAM`` attached to a (1, 2) and then a (2, 1) mesh
+   at the bench configuration, ``precompile`` and the main path's frames
+   graphed, then with ``capture=False``: every run's digest equal, no
+   collective in ``precompile``, seconds per frame both ways, the ATE
+   under ``ATE_LOST_CM``, each rank's graph pool and peak memory.
    (b) ``NiceSLAM`` with ``parallel.track_role`` and ``parallel.stage_ep``
    on the devices ``[cuda:0, cuda:0]``, the fused strict main path: its
    digest must equal phase 4's. (c) ``python -m niceslam_tpu_torch
@@ -140,7 +146,8 @@ prints no result):
    = 1``, ``kf = 0``: every rank on kf), 4096 rays, synthetic scene,
    ``iters_first`` cut to 300, 5 frames: every rank exits 0 (the command
    fails when the ranks' trajectories differ), no lost track, ``fps_avg``
-   and each rank's launches, peak memory and graph pool printed.
+   and each rank's launches, peak memory and graph pool printed. Both
+   command lines run their passes graphed.
 
 12. pretraining: one step of ``pretrain_decoders`` at the bench envelope
    and full width (batch 4096, ``GridConfig()``, ``DecoderConfig()``), card
@@ -169,9 +176,10 @@ prints no result):
 
 Phases 4, 7, 8, 9, 10, 11 (b) and 12 run graphed, as ``NiceSLAM``,
 ``render_image``, the mesher and ``pretrain_decoders`` do on a card; so
-do phase 11's command lines and its system on (1, 2), but for the passes
-at ``map = 2``, which run eagerly (their collectives sit inside the halo
-sampler), as do the halo and sharded-pass jobs of phase 11 (a). Every graph of the card, whichever object holds
+do phase 11's command lines, its systems and its programs, every pass
+there a few graphs around eager all_reduces; the halo sampler and the
+sharded passes of phase 11 (a) run eagerly, as the references of those
+programs. Every graph of the card, whichever object holds
 it, lies in the card's one pool (``slam/programs.py``): the process's pool
 is read where each phase ends (after the main path, the meshes of phase 5
 and the panel of phase 10 among them) and summed up in one line.
@@ -2457,42 +2465,66 @@ def _mapping_job(path, n_map, n_kf, which, rank=0):
                loss_err=float(((lo - want).abs() / (2e-4 + 2e-4 * want.abs())).max()),
                digest=digest(np.zeros((1, 4, 4), np.float32), grids),
                iters=int(len(lo)), ms=ms, all_reduce_ms=ar_ms)
-    if n_map > 1:
-        return out
-    progs = programs.Programs(capture=True)
-    prog = progs.map_program(
-        (a["cams"].shape[0], False, True), "cuda:0", a["pcfg"], a["intr"], a["rcfg"],
-        a["grids"], a["decoders"], a["cams"], len(sched), kf=rt.kf_slice(a["pcfg"].n_pixels))
+    blocks = (lambda t: t) if n_map == 1 else rt.split
+    kf = rt.kf_slice(a["pcfg"].n_pixels)
     draws = stack_draws([a["pixels"][it] for it in range(len(sched))], "cuda:0")
 
-    def graphed():
-        return prog.run(a["grids"], a["decoders"], a["cams"], a["masks"], a["bounds"],
-                        a["scene_bound"], a["colors"], a["depths"], a["valid"], a["fixed"],
-                        sched, draws)
+    def program(capture):
+        progs = programs.Programs(capture=capture)
+        prog = progs.map_program(
+            (a["cams"].shape[0], False, True), "cuda:0", a["pcfg"], a["intr"], a["rcfg"],
+            blocks(a["grids"]), a["decoders"], a["cams"], len(sched), kf=kf)
+        return progs, lambda: prog.run(
+            blocks(a["grids"]), a["decoders"], a["cams"], blocks(a["masks"]), a["bounds"],
+            a["scene_bound"], a["colors"], a["depths"], a["valid"], a["fixed"], sched, draws)
 
+    if n_map == 1:
+        # The kf program's reference is the eager pass, bit for bit.
+        want = (losses, pp.params["grids"], pp.params["decoders"], pp.params["cams"])
+        want_launches, ref_ms, ref_ar_ms = launches, ms, ar_ms
+    else:
+        # The map program's reference is its own bodies run eagerly, bit for
+        # bit; the eager pass adds the same gradient terms in another order.
+        _, eager = program(False)
+        set_launches({})
+        want, ref_ms, ref_ar_ms, _ = _timed(eager)
+        want_launches = all_launches()
+        check_route_launches(f"map program {n_map}x{n_kf}", "fused", want_launches)
+        lo_p = want[3].cpu()
+        out.update(
+            program_loss_err=float(((lo_p - ref["losses"].cpu()).abs()
+                                    / (2e-4 + 2e-4 * ref["losses"].cpu().abs())).max()),
+            program_diffs=state_errs(dict(grids=rt.assemble(want[0]), cams=want[2],
+                                          decoders=tree_leaves(want[1])), ref))
+        want = (want[3], want[0], want[1], want[2])
+    progs, graphed = program(True)
     _, ms_first, _, _ = _timed(graphed)  # captures the graphs of each stage
     set_launches({})
     (g, d, c, glo), ms_g, ar_ms_g, calls = _timed(graphed)
     glaunches = all_launches()
-    equal = (torch.equal(glo, losses) and torch.equal(c, pp.params["cams"])
-             and all(torch.equal(g[k], v) for k, v in pp.params["grids"].items())
-             and all(torch.equal(x, y) for x, y in zip(tree_leaves(d),
-                                                       tree_leaves(pp.params["decoders"]))))
-    if not equal or glaunches != launches or calls != len(sched):
+    w_lo, w_g, w_d, w_c = want
+    equal = (torch.equal(glo, w_lo) and torch.equal(c, w_c)
+             and all(torch.equal(g[k], v) for k, v in w_g.items())
+             and all(torch.equal(x, y) for x, y in zip(tree_leaves(d), tree_leaves(w_d))))
+    per_row = 1 if n_map == 1 else 3 + (n_kf > 1)  # the segment plan's collectives
+    if not equal or glaunches != want_launches or calls != per_row * len(sched):
         raise AssertionError(
-            f"kf program 1x{n_kf} rank {rank}: graphed equal to eager {equal}, launches "
-            f"{glaunches} against {launches}, {calls} all_reduces for {len(sched)} rows")
+            f"{'kf' if n_map == 1 else 'map'} program {n_map}x{n_kf} rank {rank}: graphed "
+            f"equal to its reference {equal}, launches {glaunches} against {want_launches}, "
+            f"{calls} all_reduces for {len(sched)} rows")
     out.update(graphed_ms=ms_g, graphed_all_reduce_ms=ar_ms_g, graphed_first_ms=ms_first,
+               graphed_all_reduce_calls=calls, reference_ms=ref_ms,
+               reference_all_reduce_ms=ref_ar_ms,
                captures=[[cp.signature, cp.seconds, cp.nodes] for cp in progs.captures],
                graphed_equal=equal, pool_mib=programs.pool_bytes() / 2**20)
     return out
 
 
-def _system_job(frames: int, iters_first: int, rank=0):
-    """``NiceSLAM`` on the bench configuration attached to this rank of a
-    1 x 2 mesh, ``frames`` frames graphed (after ``precompile``), then with
-    ``capture=False``: each run's per-frame seconds, digest, ATE, the
-    process's graph pool and peak memory."""
+def _system_job(frames: int, iters_first: int, n_map: int = 1, n_kf: int = 2, rank=0):
+    """``NiceSLAM`` on the bench configuration attached to this rank of an
+    ``n_map x n_kf`` mesh, ``frames`` frames graphed (after
+    ``precompile``), then with ``capture=False``: each run's per-frame
+    seconds, digest, ATE, the process's graph pool and peak memory."""
     from niceslam_tpu_torch.config.schema import ParallelConfig
     from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
     from niceslam_tpu_torch.parallel.mesh import make_mesh
@@ -2502,10 +2534,10 @@ def _system_job(frames: int, iters_first: int, rank=0):
 
     cfg = bench_config()
     cfg = dataclasses.replace(
-        cfg, parallel=ParallelConfig(n_processes=2, map=1, kf=2),
+        cfg, parallel=ParallelConfig(n_processes=2, map=n_map, kf=n_kf),
         mapping=dataclasses.replace(cfg.mapping, iters_first=iters_first))
-    rt = MapKfRuntime(make_mesh(1, 2), "cuda:0", "gloo", rank, 2)
-    out = dict(job="system")
+    rt = MapKfRuntime(make_mesh(n_map, n_kf), "cuda:0", "gloo", rank, 2)
+    out = dict(job="system", mesh=f"{n_map}x{n_kf}")
     for tag, capture in (("graphed", None), ("eager", False)):
         reader = SyntheticBoxReader(cfg, n_frames=36)
         slam = NiceSLAM(cfg, reader=reader, seed=0, device="cuda:0", capture=capture)
@@ -2596,7 +2628,7 @@ def log_system_job(rank: int, r: dict):
     """One rank's runtime-attached system, graphed and eager."""
     for tag in ("graphed", "eager"):
         x = r[tag]
-        log(f"multi system 1x2 rank {rank} [{tag}]: precompile {x['precompile_s']:.3f} s "
+        log(f"multi system {r['mesh']} rank {rank} [{tag}]: precompile {x['precompile_s']:.3f} s "
             f"({x['captures']} graphs: {x['kinds']}, {x['precompile_all_reduces']} "
             f"all_reduces), per-frame seconds {[round(d, 4) for d in x['dts']]}, after "
             f"frame 0 {sum(x['dts'][1:]):.3f} s, all_reduce per frame "
@@ -2621,11 +2653,13 @@ def check_system_job(rows):
     if not all(r[t]["finite"] and r[t]["ate_cm"] < ATE_LOST_CM for r in rows
                for t in ("graphed", "eager")):
         problems.append(f"lost track: {[r[t]['ate_cm'] for r in rows for t in ('graphed', 'eager')]}")
+    mesh = rows[0]["mesh"]
     if problems:
-        raise AssertionError(f"multi system 1x2: {problems}")
-    log(f"multi system 1x2: graphed and eager equal on every rank (sha1 {digests.pop()}); "
+        raise AssertionError(f"multi system {mesh}: {problems}")
+    log(f"multi system {mesh}: graphed and eager equal on every rank (sha1 {digests.pop()}); "
+        f"frame 0 graphed {g['dts'][0]:.3f} s, eager {rows[0]['eager']['dts'][0]:.3f} s; "
         f"after frame 0 graphed {sum(g['dts'][1:]):.3f} s, eager "
-        f"{sum(rows[0]['eager']['dts'][1:]):.3f} s (rank 0)")
+        f"{sum(rows[0]['eager']['dts'][1:]):.3f} s; ATE {g['ate_cm']:.4f} cm (rank 0)")
 
 
 def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int = 5):
@@ -2648,10 +2682,11 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
             jobs += [("mapping", dict(path=path, n_map=m, n_kf=k, which=w))
                      for m, k in meshes for w in range(len(iters))]
             if world == 2:
-                jobs.append(("system", dict(frames=run["n_frames"],
-                                            iters_first=cfg.mapping.iters_first)))
+                jobs += [("system", dict(frames=run["n_frames"], n_map=m, n_kf=k,
+                                         iters_first=cfg.mapping.iters_first))
+                         for m, k in ((1, 2), (2, 1))]
             t0 = time.perf_counter()
-            res = spawn_ranks(world, jobs, deadline_s=720.0 if world == 2 else 240.0)
+            res = spawn_ranks(world, jobs, deadline_s=900.0 if world == 2 else 300.0)
             log(f"multi: {world} ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s "
                 f"(processes included)")
             for rank, rows in enumerate(res):
@@ -2674,16 +2709,32 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                         f"in {r['all_reduce_calls']} calls; launches {r['launches']}; {extra}")
                     if "graphed_ms" in r:
                         n = r["iters"]
-                        log(f"multi rank {rank}/{world}: {what} as the system's kf program, "
+                        kind, ref = (("kf program", "the eager pass") if r["n_map"] == 1 else
+                                     ("map program", "its bodies with capture=False"))
+                        log(f"multi rank {rank}/{world}: {what} as the system's {kind}, "
                             f"graphed: {r['graphed_ms'] / n:.3f} ms per iteration (all_reduce "
-                            f"{r['graphed_all_reduce_ms'] / n:.3f}), eager {r['ms'] / n:.3f} "
-                            f"(all_reduce {r['all_reduce_ms'] / n:.3f}), first graphed run "
-                            f"with its captures {r['graphed_first_ms']:.1f} ms; bit-equal to "
-                            f"the eager pass, launches included; graph pool "
-                            f"{r['pool_mib']:.1f} MiB; captures {r['captures']}")
+                            f"{r['graphed_all_reduce_ms'] / n:.3f} ms in "
+                            f"{r['graphed_all_reduce_calls'] / n:g} calls), reference "
+                            f"{r['reference_ms'] / n:.3f} (all_reduce "
+                            f"{r['reference_all_reduce_ms'] / n:.3f}), the eager pass "
+                            f"{r['ms'] / n:.3f} (all_reduce {r['all_reduce_ms'] / n:.3f}), "
+                            f"first graphed run with its captures {r['graphed_first_ms']:.1f} "
+                            f"ms; bit-equal to {ref}, launches included; graph pool "
+                            f"{r['pool_mib']:.1f} MiB, peak {r['peak_mib']:.1f} MiB; "
+                            f"{len(r['captures'])} captures {r['captures']}")
+                    if "program_diffs" in r:
+                        log(f"multi rank {rank}/{world}: {what} map program against the "
+                            f"unsharded pass: loss err/tol {r['program_loss_err']:.3f}, "
+                            f"parameters max diffs {r['program_diffs']}"
+                            f"{'' if r['held'] else ' (printed)'}")
                     if r["job"] == "mapping":
                         bad = {k: v for k, v in r["diffs"].items()
                                if r["held"] and not v <= 2e-5}
+                        bad.update({f"program {k}": v
+                                    for k, v in r.get("program_diffs", {}).items()
+                                    if r["held"] and not v <= 2e-5})
+                        if r.get("program_loss_err", 0.0) > 1.0:
+                            bad["program losses"] = r["program_loss_err"]
                         bad.update({f"gradient {k}": v for k, v in r["grad_err"].items()
                                     if not v <= 2e-5})
                         if r["loss_err"] > 1.0 or bad:
@@ -2731,7 +2782,7 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
     # (c) the command line on 4 ranks, map = 2 x kf = 2, with a resume; then
     # on 2 ranks on the shipped mesh (map 1, every rank on kf).
     with tempfile.TemporaryDirectory() as tmp:
-        def cli_ranks(config, overrides, world, extra, tag):
+        def cli_ranks(config, overrides, world, extra, tag, segments):
             import socket
 
             with socket.socket() as s:
@@ -2771,21 +2822,33 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                                      json.loads(info[0][len("launches "):]))
             last = json.loads(outs[0][0].strip().splitlines()[-1])
             traj = np.load(os.path.join(tmp, f"{tag}.npy"))
-            log(f"multi cli [{tag}]: {world} ranks in {dt:.1f} s (processes included); rank "
-                f"0's last line {last}")
+            log(f"multi cli [{tag}]: {world} ranks in {dt:.1f} s (processes included); "
+                f"fps_avg {last['fps_avg']}; rank 0's last line {last}")
             if not (last["frames"] == cli_frames and traj.shape == (cli_frames, 4, 4)
                     and np.isfinite(traj).all()):
                 raise AssertionError(f"multi cli [{tag}]: {last}, trajectory {traj.shape}")
             if not last["ate_rmse_cm"] < ATE_LOST_CM:
                 raise AssertionError(f"multi cli [{tag}]: the track is lost: {last}")
+            with open(os.path.join(tmp, f"{tag}.jsonl")) as f:
+                recs = [json.loads(line) for line in f.read().strip().splitlines()]
+            progs = recs[-1]
+            log(f"multi cli [{tag}]: rank 0's frames (s: dt, dt_track, dt_map) "
+                f"{[(e['dt'], e['dt_track'], e['dt_map']) for e in recs if e['event'] == 'frame']}; "
+                f"its programs {progs}")
+            if not (progs["event"] == "programs" and progs["graphed"]
+                    and progs["graphs"].get("map", 0) > 0 and progs["map_segments"] == segments):
+                raise AssertionError(f"multi cli [{tag}]: the passes did not run as the graphs "
+                                     f"of {segments}: {progs}")
             return traj
 
         overrides = ["dataset=synthetic", "sync_method=async", "tracking.method=adam",
                      "mapping.iters_first=100", "mapping.color_refine=false",
                      "mapping.ckpt_freq=2", "parallel.map=2", "parallel.kf=2"]
-        traj = cli_ranks("cofusion.yaml", overrides, 4, [], "run")
+        map_segments = ["gather", "grads", "halo", "sample", "step"]
+        traj = cli_ranks("cofusion.yaml", overrides, 4, [], "run", map_segments)
         ck = os.path.join(tmp, "ck", "frame_000002")
-        traj2 = cli_ranks("cofusion.yaml", overrides, 4, ["--resume", ck], "resume")
+        traj2 = cli_ranks("cofusion.yaml", overrides, 4, ["--resume", ck], "resume",
+                          map_segments)
         if not np.array_equal(traj2[:3], traj[:3]):
             raise AssertionError("multi cli: the resumed trajectory does not start with the "
                                  "saved one")
@@ -2793,7 +2856,7 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
         cli_ranks("apartment_multihost.yaml",
                   ["dataset=synthetic", "parallel.map=1", "parallel.kf=0",
                    "mapping.pixels=4096", f"mapping.iters_first={KF_CLI_ITERS_FIRST}"],
-                  2, [], "kf-only")
+                  2, [], "kf-only", ["grads", "step"])
 
 
 # ---------------------------------------------------------------- phase 12

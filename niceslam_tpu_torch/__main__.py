@@ -36,15 +36,21 @@ On N ranks (``parallel.n_processes: N``, ``parallel.map`` x ``parallel.kf``
         --set dataset=synthetic --set parallel.n_processes=2 \
         --set parallel.map=2 --process-id $r & done; wait
 
-On the card the ranks' solves replay graphs too, and so do the mapping
-passes of a mesh with one map block (``parallel.map: 1``): each iteration
-is two graphs around the all_reduce of its gradients. With ``map > 1`` the
-passes run eagerly (their collectives sit inside the halo sampler).
+On the card the ranks' solves and mapping passes replay graphs too, with
+a pass's collectives run eagerly between two replays: with one map block
+(``parallel.map: 1``) each iteration is two graphs around the all_reduce of
+its gradients, with ``map > 1`` the segments of
+``parallel/sharded_mapper.MapSegments`` around 3 all_reduces (4 with
+``kf > 1``).
 
 Only rank 0 prints, writes the trajectory, meshes, panels, checkpoints and
 the profile, and logs to ``--log``; rank ``r > 0`` logs to
 ``<log stem>.rank<r>.jsonl``. At the end every rank's trajectory must equal
-rank 0's bit for bit, else the command fails.
+rank 0's bit for bit, else the command fails. The last event of every
+rank's log, ``{"event": "programs"}``, says whether its programs ran as
+graphs, how many graphs of each kind it captured, and the segments of its
+mapping graphs (``grads``/``step`` on kf, ``halo``, ``sample``, ``grads``,
+``gather``, ``step`` with ``map > 1``; none on one rank).
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ import dataclasses
 import json
 import os
 import sys
+from collections import Counter
 
 import numpy as np
 import torch
@@ -169,6 +176,15 @@ def _run(args, cfg, rt) -> int:
                         bounds=slam.bounds, scene_bound=slam.scene_bound,
                     )
         res = slam.result()
+    progs = slam._programs
+    slam.log.log({
+        "event": "programs", "graphed": progs.capture,
+        "graphs": dict(Counter(cp.signature.split()[0] for cp in progs.captures)),
+        "map_segments": sorted({
+            seg for cp in progs.captures if cp.signature.startswith("map ")
+            for seg in cp.signature.split(" route=")[0].split()[-1].split("+")
+            if not seg.startswith("stage=")}),
+    })
     if not rt.ranks_agree(torch.as_tensor(np.asarray(res["est_c2w"], np.float32))):
         raise RuntimeError(f"rank {rt.rank}: the ranks' trajectories differ")
     slam.log.close()

@@ -58,7 +58,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops.trilinear import trilerp_on_route, voxel_coords
+from ..ops.trilinear import trilerp_keep, trilerp_on_route, trilerp_vjp, voxel_coords
 from ..parallel.mesh import MapKfMesh, all_reduce_, exchange_rows
 
 
@@ -86,6 +86,26 @@ def shard_hierarchy(
     ``(blocks, logical Zs)``."""
     nz = {lvl: int(g.shape[0]) for lvl, g in grids.items()}
     return {lvl: block_of(pad_z_to(g, mesh.n_map), mesh) for lvl, g in grids.items()}, nz
+
+
+def local_rows(zb: int, nz: int, lo: int) -> int:
+    """How many rows of ``cat(block, halo)`` the rank whose block starts at
+    ``lo`` samples: ``min(zb + 1, nz - lo)``, at least 2 (the edge cases
+    above)."""
+    return max(min(zb + 1, nz - lo), 2)
+
+
+def local_coords(v: torch.Tensor, lo: int, zb: int, nz: int):
+    """``(v_loc, mine)`` of global voxel coords ``v [N, 3]`` on the block of
+    ``zb`` rows at ``lo``: the local coords ``clip(vz - lo, 0, zb)`` and the
+    float mask ``[N, 1]`` of the points it owns, ``lo <= z0 < lo + zb``
+    with ``z0 = clip(floor(vz), 0, nz - 2)``."""
+    z0 = torch.floor(v[:, 0]).long().clamp(0, nz - 2)
+    mine = ((z0 >= lo) & (z0 < lo + zb)).to(v.dtype)[:, None]
+    v_loc = torch.stack(
+        [torch.clamp(v[:, 0] - lo, 0.0, float(zb)), v[:, 1], v[:, 2]], dim=-1
+    )
+    return v_loc, mine
 
 
 class NextFirstRow(torch.autograd.Function):
@@ -121,13 +141,9 @@ class _LocalSample(torch.autograd.Function):
     def forward(ctx, block, halo, v, mesh: MapKfMesh, nz: int):
         zb = block.shape[0]
         lo = mesh.map_i * zb
-        z0 = torch.floor(v[:, 0]).long().clamp(0, nz - 2)
-        mine = ((z0 >= lo) & (z0 < lo + zb)).to(v.dtype)[:, None]
-        v_loc = torch.stack(
-            [torch.clamp(v[:, 0] - lo, 0.0, float(zb)), v[:, 1], v[:, 2]], dim=-1
-        )
+        v_loc, mine = local_coords(v, lo, zb, nz)
         need_g = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        rows = max(min(zb + 1, nz - lo), 2)  # see the edge cases above
+        rows = local_rows(zb, nz, lo)
         parts = [block.detach()[:rows]] + ([halo.detach()] if rows > zb else [])
         with torch.enable_grad():
             g = torch.cat(parts).requires_grad_(need_g)
@@ -180,3 +196,119 @@ def sample_grid_sharded(
     v = voxel_coords(pts, bound, (nz, Y, X))
     halo = NextFirstRow.apply(block, mesh)
     return _LocalSample.apply(block, halo, v, mesh, nz)
+
+
+# ------------------------------------------------ the sampler in two phases
+class SlotRows:
+    """The first rows ``[Y, X, C]`` of several levels in one slotted buffer
+    ``[n_map, sum of Y * X * C]`` (``buf``, a view of ``storage``), for one
+    all_reduce over the map group in the manner of :func:`exchange_rows`:
+    after it, slot ``s`` holds what the rank that wrote slot ``s`` put
+    there, and zeros where nobody wrote."""
+
+    def __init__(self, storage: torch.Tensor, row_shapes: Dict[str, tuple], levels,
+                 n_map: int):
+        self.shapes = {lvl: tuple(row_shapes[lvl]) for lvl in levels}
+        self.offsets, width = {}, 0
+        for lvl, shape in self.shapes.items():
+            n = 1
+            for d in shape:
+                n *= d
+            self.offsets[lvl] = (width, n)
+            width += n
+        self.buf = storage[:n_map * width].view(n_map, width)
+
+    def row(self, lvl: str, slot: int) -> torch.Tensor:
+        """Level ``lvl``'s row in ``slot``, a ``[1, Y, X, C]`` view."""
+        off, n = self.offsets[lvl]
+        return self.buf[slot, off:off + n].view((1,) + self.shapes[lvl])
+
+    @torch.no_grad()
+    def pack_(self, rows: Dict[str, torch.Tensor], slot: int) -> None:
+        """Zero the buffer and write each level's ``rows[lvl]`` (``[1, Y, X,
+        C]``, or None for zeros) into ``slot``."""
+        self.buf.zero_()
+        for lvl, r in rows.items():
+            if r is not None:
+                self.row(lvl, slot).copy_(r)
+
+
+class SplitSample:
+    """One level of :func:`sample_grid_sharded` with its collectives taken
+    out, for a caller that runs them between two phases (the map-sharded
+    mapping program, ``parallel/sharded_mapper.MapSegments``):
+
+    - :meth:`forward_`: the owner-masked local sample of ``cat(block[:rows],
+      halo)`` (the edge rule above) at the global voxel coords ``v``, on the
+      current route through ``ops.trilinear.trilerp_keep`` (K1, or K3 + K4),
+      written into a slice of the caller's feature buffer, which the caller
+      then sums over the map group;
+    - :meth:`summed`: the summed features as a differentiable op
+      (:class:`SummedSample`) whose backward is the local one (K2, or K5 on
+      ``d_feat * mine``): the block's and the halo row's gradients, and
+      ``d_v`` for this block's points only, which the caller sums over the
+      map group before it reaches the points.
+
+    The static buffers (:meth:`buffers`): ``cat(block, halo)`` where this
+    rank reads the halo, and on the packed route the ``[N, 8C]`` corner rows
+    that the backward reads, so that the two phases may be separate CUDA
+    graphs."""
+
+    def __init__(self, block_shape, mesh: MapKfMesh, n_pts: int, route: str, device):
+        zb, Y, X, C = block_shape
+        self.zb, self.nz, self.lo = zb, zb * mesh.n_map, mesh.map_i * zb
+        self.rows = local_rows(zb, self.nz, self.lo)
+        self.local = (torch.zeros((zb + 1, Y, X, C), device=device)
+                      if self.rows > zb else None)
+        self.corner_rows = (torch.zeros((n_pts, 8 * C), device=device)
+                            if route == "packed" else None)
+
+    def buffers(self):
+        return [t for t in (self.local, self.corner_rows) if t is not None]
+
+    def grid(self, block: torch.Tensor) -> torch.Tensor:
+        """The local grid of the last :meth:`forward_` on ``block``."""
+        return self.local if self.local is not None else block.detach()[:self.rows]
+
+    @torch.no_grad()
+    def forward_(self, block: torch.Tensor, halo: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor) -> None:
+        """``out [N, C]`` = this rank's share of the sample at ``v``: the
+        local value on the points it owns, zeros elsewhere."""
+        if self.local is not None:
+            self.local[:self.zb].copy_(block)
+            self.local[self.zb:].copy_(halo)
+        v_loc, mine = local_coords(v, self.lo, self.zb, self.nz)
+        torch.mul(trilerp_keep(self.grid(block), v_loc, self.corner_rows), mine, out=out)
+
+    def summed(self, block: torch.Tensor, halo: torch.Tensor, v: torch.Tensor,
+               feat: torch.Tensor) -> torch.Tensor:
+        """``feat`` (the map group's sum of :meth:`forward_`) as a function
+        of ``block``, ``halo`` and ``v`` (:class:`SummedSample`)."""
+        return SummedSample.apply(block, halo, v, feat, self)
+
+
+class SummedSample(torch.autograd.Function):
+    """``(block, halo, v) -> feat``, the features that the map group summed
+    after :meth:`SplitSample.forward_`; the backward is
+    :class:`_LocalSample`'s without its all_reduce: ``d_v`` is this rank's
+    share, for the caller to sum."""
+
+    @staticmethod
+    def forward(ctx, block, halo, v, feat, split: SplitSample):
+        ctx.v_loc, ctx.mine = local_coords(v, split.lo, split.zb, split.nz)
+        ctx.grid, ctx.split = split.grid(block), split
+        return feat.clone()
+
+    @staticmethod
+    def backward(ctx, gout):
+        s = ctx.split
+        need_g = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        d_g, d_v = trilerp_vjp(ctx.grid, ctx.v_loc, s.corner_rows, gout * ctx.mine,
+                               need_g, ctx.needs_input_grad[2])
+        d_block = d_halo = None
+        if need_g:
+            d_full = d_g.new_zeros((s.zb + 1,) + tuple(d_g.shape[1:]))
+            d_full[:d_g.shape[0]] = d_g
+            d_block, d_halo = d_full[:s.zb], d_full[s.zb:]
+        return d_block, d_halo, d_v, None, None

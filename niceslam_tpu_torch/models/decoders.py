@@ -148,6 +148,16 @@ def _geo_occ(params, grids, bounds, pts):
     return fine_occ + mid_occ
 
 
+# The grid levels that ``nice_forward`` samples in each stage, in LEVEL order
+# (coarse, middle, fine, color); each level once, at the same points.
+STAGE_LEVELS = {
+    "coarse": ("coarse",),
+    "middle": ("middle",),
+    "fine": ("middle", "fine"),
+    "color": ("middle", "fine", "color"),
+}
+
+
 def nice_forward(
     params: Params,
     grids: Dict[str, torch.Tensor],

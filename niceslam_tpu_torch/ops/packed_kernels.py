@@ -193,6 +193,19 @@ def scatter_corners(idx4: torch.Tensor, ct8: torch.Tensor, r_rows: int) -> torch
 
 
 # -------------------------------------------------------- differentiable op
+def packed_rows_grad(grows: torch.Tensor, start: torch.Tensor, shape) -> torch.Tensor:
+    """The grid gradient ``[Z, Y, X, C]`` (``shape``) of :func:`packed_rows`
+    at int32 starts ``start`` for the rows' cotangent ``grows [N, 8C]``: the
+    scatter of every row's 8 corner cotangents into the grid (K5)."""
+    Z, Y, X, C = shape
+    # Table order [x][y][z] -> k order [z][y][x]; x-adjacent k form pairs.
+    ct8 = (
+        grows.reshape(-1, 2, 2, 2, C).permute(0, 3, 2, 1, 4).reshape(-1, 8, C)
+    ).contiguous()
+    dgrid = scatter_corners(pair_starts(start, Y, X), ct8, Z * Y * X)
+    return dgrid.reshape(Z, Y, X, C)
+
+
 class PackedRows(torch.autograd.Function):
     """``packed_rows(grid [Z,Y,X,C], start [N]) -> [N, 8C]``: the corner-table
     row of every start voxel, differentiable in the grid.
@@ -221,13 +234,7 @@ class PackedRows(torch.autograd.Function):
         (start,) = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None
-        Z, Y, X, C = ctx.shape
-        # Table order [x][y][z] -> k order [z][y][x]; x-adjacent k form pairs.
-        ct8 = (
-            grows.reshape(-1, 2, 2, 2, C).permute(0, 3, 2, 1, 4).reshape(-1, 8, C)
-        ).contiguous()
-        dgrid = scatter_corners(pair_starts(start, Y, X), ct8, Z * Y * X)
-        return dgrid.reshape(Z, Y, X, C), None
+        return packed_rows_grad(grows, start, ctx.shape), None
 
     @staticmethod
     def jvp(ctx, grid_dot, start_dot):

@@ -29,11 +29,12 @@ On CPU tensors every kernel runs its plain PyTorch version.
 from __future__ import annotations
 
 from contextlib import contextmanager
+from typing import Optional
 
 import torch
 
-from .packed_kernels import packed_rows
-from .trilerp_kernels import trilerp
+from .packed_kernels import packed_rows, packed_rows_grad
+from .trilerp_kernels import trilerp, trilerp_bwd
 
 ROUTES = ("fused", "packed")
 _ROUTE = "fused"
@@ -107,15 +108,12 @@ def packed_starts(v: torch.Tensor, shape3):
     return row, v - torch.stack([z0, y0, x0], dim=-1).to(v.dtype)
 
 
-def trilerp_packed(grid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Trilinear lerp of ``grid [Z, Y, X, C]`` at voxel coords ``v [N, 3]``
-    through its corner table: ONE ``[N, 8C]`` row per point, then the nested
-    lerp chain of the JAX package's ``trilerp_packed`` on the unpacked
-    corners.
-    """
-    C = grid.shape[-1]
-    row, w = packed_starts(v, grid.shape[:3])
-    r = packed_rows(grid, row).reshape(-1, 2, 2, 2, C)  # [N, x, y, z, C]
+def lerp_corner_rows(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The nested lerp chain of the JAX package's ``trilerp_packed`` on
+    corner-table rows ``[N, 8C]`` (:func:`packed_rows`) at the weights ``w
+    [N, 3]`` of :func:`packed_starts` -> ``[N, C]``."""
+    C = rows.shape[-1] // 8
+    r = rows.reshape(-1, 2, 2, 2, C)  # [N, x, y, z, C]
     wz, wy, wx = w[:, 0:1], w[:, 1:2], w[:, 2:3]
 
     c000 = r[:, 0, 0, 0]
@@ -136,12 +134,56 @@ def trilerp_packed(grid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return c0 * (1 - wz) + c1 * wz
 
 
+def trilerp_packed(grid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Trilinear lerp of ``grid [Z, Y, X, C]`` at voxel coords ``v [N, 3]``
+    through its corner table: ONE ``[N, 8C]`` row per point, then the nested
+    lerp chain of the JAX package's ``trilerp_packed`` on the unpacked
+    corners (:func:`lerp_corner_rows`).
+    """
+    row, w = packed_starts(v, grid.shape[:3])
+    return lerp_corner_rows(packed_rows(grid, row), w)
+
+
 def trilerp_on_route(grid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Trilinear lerp of ``grid [Z, Y, X, C]`` at voxel coords ``v [N, 3]``
     on the route :func:`get_sampler_route` names."""
     if _ROUTE == "packed":
         return trilerp_packed(grid, v)
     return trilerp(grid, v.contiguous())
+
+
+def trilerp_keep(grid: torch.Tensor, v: torch.Tensor,
+                 rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """The value of :func:`trilerp_on_route` at ``(grid, v)`` without its
+    autograd tape, keeping what :func:`trilerp_vjp` reads: on the packed
+    route the gathered corner rows land in ``rows [N, 8C]`` (K3, K4); the
+    fused route (K1) keeps nothing (``rows`` may be None)."""
+    with torch.no_grad():
+        if _ROUTE == "packed":
+            row, w = packed_starts(v, grid.shape[:3])
+            rows.copy_(packed_rows(grid, row))
+            return lerp_corner_rows(rows, w)
+        return trilerp(grid, v.contiguous())
+
+
+def trilerp_vjp(grid: torch.Tensor, v: torch.Tensor, rows: Optional[torch.Tensor],
+                g: torch.Tensor, need_grid: bool, need_v: bool):
+    """``(d_grid or None, d_v or None)``: the backward of
+    :func:`trilerp_on_route` at ``(grid, v)`` for the cotangent ``g [N, C]``,
+    as its autograd backward computes it, without its forward kernels: K2
+    on the fused route; on the packed route the lerp chain again on the
+    corner rows that :func:`trilerp_keep` kept, then K5."""
+    if _ROUTE != "packed":
+        return trilerp_bwd(grid, v.contiguous(), g.contiguous(), need_grid, need_v)
+    with torch.enable_grad():
+        vl = v.detach().requires_grad_(need_v)
+        r = rows.detach().requires_grad_(need_grid)
+        row, w = packed_starts(vl, grid.shape[:3])
+        out = lerp_corner_rows(r, w)
+        wrt = [t for t in (r, vl) if t.requires_grad]
+        grads = list(torch.autograd.grad(out, wrt, g)) if wrt else []
+    d_grid = packed_rows_grad(grads.pop(0), row, tuple(grid.shape)) if need_grid else None
+    return d_grid, (grads.pop(0) if need_v else None)
 
 
 def sample_grid(

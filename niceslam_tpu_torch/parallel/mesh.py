@@ -90,10 +90,17 @@ def make_mesh(n_map: int, n_kf: int) -> MapKfMesh:
     return MapKfMesh(n_map, n_kf, map_i, kf_i, map_group, kf_group)
 
 
+# The collectives this process has issued: every all_reduce_ over more than
+# one rank counts one.
+CALLS = {"all_reduce": 0}
+
+
 def all_reduce_(t: torch.Tensor, group, size: int) -> torch.Tensor:
-    """Sum ``t`` in place over ``group`` (of ``size`` ranks); returns ``t``."""
+    """Sum ``t`` in place over ``group`` (of ``size`` ranks); returns ``t``.
+    Counts one in :data:`CALLS` when ``size > 1``."""
     if size > 1:
         dist.all_reduce(t, group=group)
+        CALLS["all_reduce"] += 1
     return t
 
 

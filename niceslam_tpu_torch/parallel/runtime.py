@@ -18,14 +18,17 @@ one process per rank (the JAX package runs one controller per host), so
   choice is the first event the attached system logs.
 - **Attachment** (:meth:`MapKfRuntime.attach`): every grid is padded to the
   map axis (``pad_grid_for_sharding``) and the system's mapping passes run
-  sharded on this rank's Z blocks: as the system's kf-sharded program
-  (CUDA graphs on a card) with ``map = 1``, eagerly with ``map > 1``
-  (:attr:`MapKfRuntime.eager_passes`). The system keeps the whole
-  padded grids as its published map: with ``map > 1`` the blocks are
-  assembled on every rank after each pass by one slotted all_reduce per
-  level, and the tracker, ``render_image``, the mesher and checkpoints
-  read that copy. Every rank then solves the same pose from the same
-  draws, through the system's programs.
+  sharded on this rank's Z blocks, as the system's mapping program (CUDA
+  graphs on a card): with ``map = 1`` two graphs an iteration around the
+  kf all_reduce, with ``map > 1`` the segments of
+  ``sharded_mapper.MapSegments`` around 3 collectives (4 with ``kf > 1``).
+  ``rendering.N_importance > 0`` with ``map > 1`` is refused here: that
+  program sums the features of one point set an iteration. The system
+  keeps the whole padded grids as its published map: with ``map > 1`` the
+  blocks are assembled on every rank after each pass by one slotted
+  all_reduce per level, and the tracker, ``render_image``, the mesher and
+  checkpoints read that copy. Every rank then solves the same pose from
+  the same draws, through the system's programs.
 
 Fault model: all or nothing, as in the JAX package. A rank that fails
 leaves the others waiting in a collective until the process group's timeout
@@ -73,20 +76,12 @@ class MapKfRuntime:
         self.device = torch.device(device)
         self.backend = backend
         self.rank, self.world = rank, world
+        # The eager sharded pass: the reference of the system's program.
         self.run_schedule = make_sharded_run_schedule(mesh)
 
     @property
     def trivial(self) -> bool:
         return self.mesh.trivial
-
-    @property
-    def eager_passes(self) -> bool:
-        """Whether the system's mapping passes run eagerly
-        (:attr:`run_schedule`): with ``map > 1``, whose collectives sit
-        inside the halo sampler and the TV term. With ``map = 1`` the pass's
-        one collective sits between the two halves of an iteration, and the
-        pass runs as a program of the system (:meth:`kf_slice`)."""
-        return self.mesh.n_map > 1
 
     def kf_slice(self, n_pixels: int):
         """This rank's part of a pass of ``n_pixels`` rays
@@ -113,6 +108,12 @@ class MapKfRuntime:
             raise ValueError(
                 f"mapping.pixels={slam.cfg.mapping.pixels} must divide the kf "
                 f"mesh axis ({self.mesh.n_kf})"
+            )
+        if self.mesh.n_map > 1 and slam.rcfg.n_importance > 0:
+            raise ValueError(
+                f"rendering.N_importance={slam.rcfg.n_importance} with parallel.map="
+                f"{self.mesh.n_map}: the map-sharded mapping program samples one point "
+                "set an iteration; set N_importance to 0 or parallel.map to 1"
             )
         slam.log.log(self.describe())
         slam._runtime = self

@@ -34,6 +34,31 @@ class RenderConfig(NamedTuple):
     surface_band: float = 0.05
 
 
+def ray_samples(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    scene_bound: torch.Tensor,
+    gt_depth: Optional[torch.Tensor],
+    cfg: RenderConfig = RenderConfig(),
+    gen: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The sample depths ``z_vals [N, S]`` of :func:`render_rays`' first
+    evaluation, placed on the detached rays: ``n_samples`` stratified, and
+    with ``gt_depth`` ``n_surface`` around it, sort-merged."""
+    det_o = rays_o.detach()
+    det_d = rays_d.detach()
+    n_surface = cfg.n_surface if gt_depth is not None else 0
+
+    near, far = rays_mod.near_far_from_bound(
+        det_o, det_d, scene_bound, gt_depth, cfg.n_samples
+    )
+    z_vals = sampling.stratified_z_vals(near, far, cfg.n_samples, cfg.perturb, gen)
+    if n_surface > 0:
+        z_surf = sampling.surface_z_vals(gt_depth, n_surface, cfg.surface_band)
+        z_vals = sampling.merge_z_vals(z_vals, z_surf)
+    return z_vals
+
+
 def render_rays(
     params,
     grids: Dict[str, torch.Tensor],
@@ -51,17 +76,7 @@ def render_rays(
     ``gt_depth=None`` renders without depth guidance (no surface samples).
     ``gen`` feeds the stratified jitter when ``cfg.perturb > 0``.
     """
-    det_o = rays_o.detach()
-    det_d = rays_d.detach()
-    n_surface = cfg.n_surface if gt_depth is not None else 0
-
-    near, far = rays_mod.near_far_from_bound(
-        det_o, det_d, scene_bound, gt_depth, cfg.n_samples
-    )
-    z_vals = sampling.stratified_z_vals(near, far, cfg.n_samples, cfg.perturb, gen)
-    if n_surface > 0:
-        z_surf = sampling.surface_z_vals(gt_depth, n_surface, cfg.surface_band)
-        z_vals = sampling.merge_z_vals(z_vals, z_surf)
+    z_vals = ray_samples(rays_o, rays_d, scene_bound, gt_depth, cfg, gen)
 
     def eval_composite(z_vals):
         pts = sampling.points_along_rays(rays_o, rays_d, z_vals)  # [N, S, 3]

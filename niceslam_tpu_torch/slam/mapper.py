@@ -229,6 +229,33 @@ def draw_mapping_pixels(
     return valid_idx[k], i, j
 
 
+def mapping_rays(
+    cams,  # [F, 7] camera tensors
+    intr: Intrinsics,
+    colors,  # [F, H, W, 3]
+    depths,  # [F, H, W]
+    frame_valid,  # [F] bool tensor
+    cam_fixed,  # [F] bool tensor — pose receives no gradient
+    fidx, i, j,  # [N] ray frame slots, pixel columns, pixel rows
+    ray_shard: Optional[Tuple[int, int]] = None,
+):
+    """The rays of :func:`mapping_loss` (its ``ray_shard`` slice of the
+    draw): ``(rays_o, rays_d, gt_depth, gt_color, ray_w)``, the rays
+    differentiable in the cameras that are not fixed."""
+    if ray_shard is not None:
+        start, size = ray_shard
+        fidx, i, j = (t[start:start + size] for t in (fidx, i, j))
+    cams = torch.where(cam_fixed[:, None], cams.detach(), cams)
+    c2ws = to_homogeneous(camera_from_tensor(cams))  # [F, 4, 4]
+    dirs = pixel_dirs(intr, i.to(torch.float32), j.to(torch.float32))
+    rays_o = c2ws[fidx, :3, 3]
+    rays_d = torch.einsum("nij,nj->ni", c2ws[fidx, :3, :3], dirs)
+    gt_depth = depths[fidx, j, i]
+    gt_color = colors[fidx, j, i]
+    ray_w = frame_valid[fidx].to(torch.float32)
+    return rays_o, rays_d, gt_depth, gt_color, ray_w
+
+
 def mapping_loss(
     all_params,
     bounds,
@@ -258,21 +285,10 @@ def mapping_loss(
     (``parallel/sharded_mapper.py``) passes the whole draw and its slice, so
     the slices over the ``kf`` axis are the unsharded ray set, and their
     losses (sums over rays) add up to the unsharded loss."""
-    grids, decoders, cams = (
-        all_params["grids"], all_params["decoders"], all_params["cams"]
-    )
-    if ray_shard is not None:
-        start, size = ray_shard
-        fidx, i, j = (t[start:start + size] for t in (fidx, i, j))
-    cams = torch.where(cam_fixed[:, None], cams.detach(), cams)
-    c2ws = to_homogeneous(camera_from_tensor(cams))  # [F, 4, 4]
-    dirs = pixel_dirs(intr, i.to(torch.float32), j.to(torch.float32))
-    rays_o = c2ws[fidx, :3, 3]
-    rays_d = torch.einsum("nij,nj->ni", c2ws[fidx, :3, :3], dirs)
-    gt_depth = depths[fidx, j, i]
-    gt_color = colors[fidx, j, i]
-    ray_w = frame_valid[fidx].to(torch.float32)
-
+    grids, decoders = all_params["grids"], all_params["decoders"]
+    rays_o, rays_d, gt_depth, gt_color, ray_w = mapping_rays(
+        all_params["cams"], intr, colors, depths, frame_valid, cam_fixed, fidx, i, j,
+        ray_shard)
     out = render_rays(
         decoders, grids, bounds, scene_bound, rays_o, rays_d, gt_depth, stage, rcfg
     )
@@ -554,12 +570,27 @@ class KfSlice(NamedTuple):
     draw (``mapping_loss``'s ``ray_shard``), ``tv_term(grids)`` in the place
     of ``mapping_loss``'s TV sum, and ``reduce(flat)``, which sums a flat
     buffer laid out by :func:`pack_grads_` in place over the kf group (None
-    with one kf rank). ``key`` is the rank's place in its mesh."""
+    with one kf rank). ``key`` is the rank's place in its mesh. With more
+    than one map block, ``segments(program)`` makes the iteration of a
+    ``slam.programs.MappingProgram`` as segments between collectives
+    (``sharded_mapper.MapSegments``); None with one map block."""
 
     ray_shard: Tuple[int, int]
     tv_term: Callable
     reduce: Optional[Callable]
     key: tuple
+    segments: Optional[Callable] = None
+
+
+class Segment(NamedTuple):
+    """A part of a mapping iteration that one CUDA graph can hold: ``body``
+    reads and writes static buffers only; ``before``, when given, is the
+    collective that runs eagerly between the previous segment and this one.
+    ``name`` names the segment's graph in the capture records."""
+
+    name: str
+    body: Callable[[], None]
+    before: Optional[Callable[[], None]] = None
 
 
 def new_flat(leaves: List[torch.Tensor]) -> torch.Tensor:

@@ -18,13 +18,16 @@ site it replaces:
   learning rates (the stages differentiate different leaves), replayed
   once per row of the schedule; the device step counter picks each
   iteration's row of the tables;
-- a mapping pass on a ``('map', 'kf')`` mesh with one map block
+- a mapping pass on a ``('map', 'kf')`` mesh
   (``parallel/sharded_mapper.py:327``): the same :class:`MappingProgram`
-  with the rank's :class:`~.mapper.KfSlice`, two graphs per stage and set
-  of zero learning rates, one of each half of the iteration
-  (:func:`~.mapper.mapping_grads`, :func:`~.mapper.mapping_step`),
-  replayed around the eager all_reduce of the flat gradient buffer
-  between them;
+  with the rank's :class:`~.mapper.KfSlice`, per stage and set of zero
+  learning rates a few graphs replayed around eager collectives: with one
+  map block one graph of each half of the iteration
+  (:func:`~.mapper.mapping_grads`, :func:`~.mapper.mapping_step`) around
+  the all_reduce of the flat gradient buffer, with more than one the
+  segments of ``parallel/sharded_mapper.MapSegments`` (halo rows, local
+  samples, loss and gradients, returned gradients, step) around 3
+  all_reduces (4 with more than one kf rank);
 - keyframe selection (``slam/keyframes.py:42``) and the frustum masks
   (``slam/keyframes.py:87``, one program per window size and map):
   :meth:`Programs.overlap_percentages`, :meth:`Programs.frustum_masks`;
@@ -39,11 +42,10 @@ site it replaces:
 Keyframe selection, the frustum masks, ``render_image`` and the mesher's
 chunks are :class:`StaticProgram` s, functions without state of their own.
 No graph holds a collective: gloo cannot be captured, and NCCL refuses two
-ranks on one card. So under a multi-rank runtime the solves, the keyframe
-programs and the passes with one map block replay graphs, and the passes
-with ``map > 1``, whose collectives sit inside the halo sampler, run
-eagerly (``parallel/sharded_mapper.py``). Ranks capture in any order and
-replay in the same order.
+ranks on one card. So under a multi-rank runtime every collective of a
+pass runs eagerly between two replays, and the solves, the keyframe
+programs and every pass replay graphs. A capture runs no collective, so
+ranks capture in any order; they replay in the same order.
 
 Who owns them: a ``NiceSLAM`` owns its programs (solves, passes, keyframe
 programs), ``pretrain_decoders.pretrain`` owns the recipe's, released with
@@ -82,6 +84,7 @@ import ctypes
 import time
 import weakref
 from collections import Counter
+from functools import partial
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -98,6 +101,7 @@ from .mapper import (
     PassInputs,
     ProgConfig,
     Schedule,
+    Segment,
     flat_views,
     init_opt_state,
     lr_zero,
@@ -417,15 +421,23 @@ class Programs:
 class MappingProgram:
     """One mapping signature on one device: the pass's parameters, Adam
     moments, inputs and tables as static buffers (``pp``, ``opt``, ``inp``,
-    ``tab``), and one graph of :func:`~.mapper.mapping_iteration` per (stage,
-    zero learning rates).
+    ``tab``), and per (stage, zero learning rates) the graphs of the
+    segments of an iteration (:class:`~.mapper.Segment`), replayed in order
+    with the eager collective that precedes each one:
 
-    With a :class:`~.mapper.KfSlice` that sums over other ranks (``kf``), a
-    static ``flat`` buffer holds an iteration's loss and gradients, and each
-    (stage, zero learning rates) has two graphs, one per half of the
-    iteration; :meth:`run` replays the first, sums ``flat`` over the kf
-    group eagerly, then replays the second. Which gradients a stage has
-    (the flat layout) is known from the first call of its first half."""
+    - one segment, :func:`~.mapper.mapping_iteration`, without a mesh;
+    - with a :class:`~.mapper.KfSlice` of one map block that sums over
+      other ranks, two: the first half into a static ``flat`` buffer of the
+      loss and gradients (:func:`~.mapper.mapping_grads`), then the kf
+      all_reduce of ``flat``, then the second half on it
+      (:func:`~.mapper.mapping_step`);
+    - with more than one map block, the segments of the slice's
+      ``segments(program)`` (``parallel/sharded_mapper.MapSegments``): 4
+      or 5 graphs around 3 or 4 collectives.
+
+    Which gradients a stage has (the flat layout) is known from the first
+    call of the segment that computes them. ``capture`` off runs the same
+    segment bodies eagerly."""
 
     def __init__(self, programs: Programs, device: torch.device, signature, pcfg: ProgConfig,
                  intr, rcfg, grids, decoders, cams, rows: int, kf: Optional[KfSlice] = None):
@@ -445,10 +457,17 @@ class MappingProgram:
                    if pcfg.frustum else None),
         )
         self.tab = new_pass_tables(rows, pcfg.n_pixels, device)
-        self.split = kf is not None and kf.reduce is not None
-        self.flat = new_flat(self.pp.leaves) if self.split else None
+        self.flat = (new_flat(self.pp.leaves)
+                     if kf is not None and (kf.reduce is not None or kf.segments is not None)
+                     else None)
         self.layouts: Dict[tuple, Tuple[bool, ...]] = {}
         self.graphs: Dict[tuple, tuple] = {}
+        self.segments = kf.segments(self) if kf is not None and kf.segments is not None else None
+
+    @property
+    def split(self) -> bool:
+        """Whether an iteration is more than one segment (on a mesh)."""
+        return self.flat is not None
 
     def _load(self, grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
               frame_valid: np.ndarray, cam_fixed: np.ndarray, lrs: np.ndarray,
@@ -476,48 +495,56 @@ class MappingProgram:
         start_pass(self.tab, lrs, pixels)
         self.opt.count = 0
 
-    def _capture(self, stage: str, zero: Tuple[bool, ...], half: str, body):
-        F, refine, ba = self.signature
-        return self.programs.capture_graph(
-            self.device,
-            f"map F={F} refine={int(refine)} ba={int(ba)} stage={stage}{half} "
-            f"route={get_sampler_route()} {self.device}",
-            body, self.buffers,
-        )
+    def plan(self, stage: str, zero: Tuple[bool, ...]) -> List[Segment]:
+        """The segments of an iteration of (``stage``, ``zero``)."""
+        if self.segments is not None:
+            return self.segments.plan(stage, zero)
+        if self.flat is None:
+            return [Segment("", partial(self._iterate, stage, zero))]
+        kf = ",".join(str(k) for k in self.kf.key)
+        return [
+            Segment(f" kf={kf} grads", partial(self._grads, stage, zero)),
+            Segment(f" kf={kf} step", partial(self._step, stage, zero),
+                    before=partial(self._reduce, stage, zero)),
+        ]
 
     def _graphs(self, stage: str, zero: Tuple[bool, ...]):
-        """The graph of an iteration, or with ``split`` the graphs of its two
-        halves, of (``stage``, ``zero``), captured at first use."""
+        """The graphs of the segments of (``stage``, ``zero``), captured at
+        first use, in order."""
         key = (stage, zero)
         if key not in self.graphs:
-            if not self.split:
-                self.graphs[key] = (self._capture(
-                    stage, zero, "", lambda: self._iterate(stage, zero)),)
-            else:
-                kf = ",".join(str(k) for k in self.kf.key)
-                self.graphs[key] = (
-                    self._capture(stage, zero, f" kf={kf} grads",
-                                  lambda: self._grads(stage, zero)),
-                    self._capture(stage, zero, f" kf={kf} step",
-                                  lambda: self._step(stage, zero)),
-                )
+            F, refine, ba = self.signature
+            self.graphs[key] = tuple(
+                self.programs.capture_graph(
+                    self.device,
+                    f"map F={F} refine={int(refine)} ba={int(ba)} stage={stage}{seg.name} "
+                    f"route={get_sampler_route()} {self.device}",
+                    seg.body, self.buffers)
+                for seg in self.plan(stage, zero))
         return self.graphs[key]
 
     def buffers(self) -> List[torch.Tensor]:
         """What an iteration writes: the parameters, the moments, the
-        losses, the step counter and, with ``split``, the flat buffer."""
+        losses, the step counter, the flat buffer on a mesh and the
+        segments' buffers with more than one map block."""
         return [*self.pp.leaves, *self.opt.mu, *self.opt.nu, self.tab.losses, self.tab.step,
-                *([self.flat] if self.split else [])]
+                *([self.flat] if self.flat is not None else []),
+                *(self.segments.buffers() if self.segments is not None else [])]
 
     def _iterate(self, stage: str, zero: Tuple[bool, ...]) -> None:
         mapping_iteration(self.pp, self.opt, self.tab, self.inp, self.intr, self.pcfg,
-                          self.rcfg, stage, zero, kf=self.kf, flat=self.flat)
+                          self.rcfg, stage, zero, kf=self.kf)
 
     def _grads(self, stage: str, zero: Tuple[bool, ...]) -> None:
         """The first half into ``flat``; records the stage's layout."""
         _, grads, _ = mapping_grads(self.pp, self.tab, self.inp, self.intr, self.pcfg,
                                     self.rcfg, stage, self.kf, self.flat)
         self.layouts[stage, zero] = tuple(g is not None for g in grads)
+
+    def _reduce(self, stage: str, zero: Tuple[bool, ...]) -> None:
+        """The kf all_reduce of the part of ``flat`` that the stage uses."""
+        _, _, used = flat_views(self.flat, self.pp.leaves, self.layouts[stage, zero])
+        self.kf.reduce(self.flat[:used])
 
     def _step(self, stage: str, zero: Tuple[bool, ...]) -> None:
         """The second half on ``flat``, summed over the kf group."""
@@ -547,22 +574,17 @@ class MappingProgram:
                    frame_valid, cam_fixed, lrs, pixels)
         with self.programs._device_context(self.device):
             for (stage, zero), count in self._runs(sched, lrs):
-                if not self.programs.capture:
-                    for _ in range(count):
-                        self._iterate(stage, zero)
-                    continue
-                graphs = self._graphs(stage, zero)
-                if not self.split:
-                    for _ in range(count):
-                        graphs[0][0].replay()
-                else:
-                    _, _, used = flat_views(self.flat, self.pp.leaves,
-                                            self.layouts[stage, zero])
-                    for _ in range(count):
-                        graphs[0][0].replay()
-                        self.kf.reduce(self.flat[:used])
-                        graphs[1][0].replay()
-                for _, delta in graphs:
+                plan = self.plan(stage, zero)
+                graphs = self._graphs(stage, zero) if self.programs.capture else None
+                for _ in range(count):
+                    for k, seg in enumerate(plan):
+                        if seg.before is not None:
+                            seg.before()
+                        if graphs is None:
+                            seg.body()
+                        else:
+                            graphs[k][0].replay()
+                for _, delta in graphs or ():
                     add_replays(delta, count)
         self.opt.count = len(sched)
         out = clone_tree(self.pp.params)
@@ -572,8 +594,7 @@ class MappingProgram:
              frame_valid: np.ndarray, cam_fixed: np.ndarray, sched: Schedule,
              pixels: torch.Tensor) -> None:
         """Capture the graphs of every run of ``sched`` (with capture on) on
-        these inputs, without running the pass; nothing is summed over the
-        ranks."""
+        these inputs, without running the pass; no collective runs."""
         lrs = schedule_lrs(sched)
         self._load(grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
                    frame_valid, cam_fixed, lrs, pixels)

@@ -44,10 +44,11 @@ keyframe overlap and the frustum masks run as programs over static
 buffers; on a card (``capture``, on by default there) each iteration or
 call is a replay of a captured CUDA graph, the counterpart of the JAX
 package's jitted programs, and :meth:`NiceSLAM.precompile` captures every
-signature before frame 0. Under a multi-rank runtime with one map block a
-pass's iteration is two graphs around the kf all_reduce; with ``map > 1``
-the passes run eagerly (``MapKfRuntime.eager_passes``: their collectives
-sit inside the halo sampler, and no graph holds a collective).
+signature before frame 0. Under a multi-rank runtime a pass's iteration
+is a few graphs around eager collectives, which no graph holds: two around
+the kf all_reduce with one map block, and with ``map > 1`` the segments of
+``parallel/sharded_mapper.MapSegments`` around 3 collectives (4 with
+``kf > 1``) on this rank's Z blocks.
 
 Randomness: grid/decoder init draws from a CPU ``torch.Generator`` seeded
 with ``seed``; tracker, mapper and overlap pixel draws from a generator on
@@ -89,11 +90,8 @@ from .mapper import (
     MapOptConfig,
     ProgConfig,
     build_stage_plan,
-    chunked_schedule,
     dec_train_table,
     draw_mapping_pixels,
-    init_opt_state,
-    make_pass_params,
     schedule_arrays,
     stack_draws,
 )
@@ -540,10 +538,9 @@ class NiceSLAM:
         masks of every window size a pass with frustum feature selection
         meets. A signature met later (the first pass with decoders trained by
         ``mapping.decoder_train: init``) is captured when it is met. Under a
-        multi-rank runtime the same, with the rank's kf-sharded mapping
-        programs (the two halves of each stage), issuing no collective; with
-        ``map > 1`` the passes run eagerly, and no mapping program is
-        made."""
+        multi-rank runtime the same, with the rank's sharded mapping programs
+        (every segment of each stage, on its Z blocks with ``map > 1``),
+        issuing no collective."""
         m = self.cfg.mapping
         H, W = self.intr.H, self.intr.W
         ones = lambda *shape: torch.ones(shape, device=self.device)  # noqa: E731
@@ -566,8 +563,6 @@ class NiceSLAM:
             self.intr, self._bounds_host, st.grids, st.keyframes.est_c2w,
             sorted({F for F, refine, _ in sigs if m.frustum_feature_selection and not refine}),
             m.keyframe_selection_method == "overlap")
-        if self._runtime is not None and self._runtime.eager_passes:
-            return
         for F, refine, ba in sigs:
             mcfg = self._make_mcfg(ba, refine, 1.0)
             pcfg = self._make_pcfg(mcfg)
@@ -583,6 +578,7 @@ class NiceSLAM:
                     rows = max(rows, m.iters_first)
                 grids, decoders, bounds = (_tree_to(t, dev) for t in (st.grids, st.decoders,
                                                                        self.bounds))
+                grids = self._blocks(grids)
                 cams = tensor_from_camera(eye.expand(F, 4, 4)).to(dev)
                 masks = {lvl: torch.ones(g.shape[:3] + (1,), device=dev)
                          for lvl, g in grids.items()}
@@ -668,48 +664,9 @@ class NiceSLAM:
             }
 
         pcfg = self._make_pcfg(mcfg)
-        decoders, bounds, scene_bound = self.state.decoders, self.bounds, self.scene_bound
-        rt = self._runtime
-        if rt is None or not rt.eager_passes:
-            sched = schedule_arrays(plan, mcfg)
-            # Every row's draws up front, on the main generator, in row order.
-            dev = self.device if device is None else device
-            valid_idx = to_device(np.flatnonzero(valid), self.device)
-            pixels = stack_draws([
-                draw_mapping_pixels(self.gen, valid_idx, pcfg.n_pixels, self.intr, self.device)
-                for _ in range(len(sched))
-            ], dev)
-            if device is not None:
-                grids, masks, decoders, bounds = (
-                    _tree_to(t, device) for t in (grids, masks, decoders, bounds)
-                )
-                cams, colors, depths, scene_bound = (
-                    t.to(device) for t in (cams, colors, depths, scene_bound)
-                )
-            prog = self._programs.map_program(
-                (F, refine, ba), dev, pcfg, self.intr, self.rcfg, grids, decoders, cams,
-                rows=len(sched), kf=self._kf_slice(pcfg))
-            new_grids, new_decoders, new_cams, losses = prog.run(
-                grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
-                valid, fixed, sched, pixels)
-        else:
-            # map > 1: the eager sharded pass, in chunks of the staged pass.
-            n_total = sum(n for _, n, _ in plan)
-            chunks, reals = chunked_schedule(plan, mcfg, min(m.iters, n_total))
-            pp = make_pass_params(rt.split(grids), decoders, cams, pcfg)
-            opt_state = init_opt_state(pp)
-            masks = rt.split(masks)
-            parts = []
-            for chunk, real in zip(chunks, reals):
-                lo = rt.run_schedule(
-                    pp, opt_state, chunk, masks, bounds, scene_bound,
-                    self.intr, colors, depths, valid, fixed, pcfg, self.rcfg, gen=self.gen,
-                )
-                parts.append(lo[:real])
-            losses = torch.cat(parts)
-            params = pp.params
-            new_grids = rt.assemble(params["grids"])
-            new_decoders, new_cams = params["decoders"], params["cams"]
+        new_grids, new_decoders, new_cams, losses = self._map_pass(
+            (F, refine, ba), plan, mcfg, pcfg, grids, masks, self.state.decoders, cams,
+            colors, depths, valid, fixed, device)
         if self.fault_hook is not None:
             new_grids, new_decoders, new_cams, losses = self.fault_hook(
                 idx, (new_grids, new_decoders, new_cams, losses)
@@ -753,6 +710,51 @@ class NiceSLAM:
                     return new_poses[wcur]
                 return new_poses[wcur].cpu().numpy()
         return cur_c2w
+
+    def _map_pass(self, signature, plan, mcfg: MapOptConfig, pcfg: ProgConfig, grids, masks,
+                  decoders, cams, colors, depths, valid: np.ndarray, fixed: np.ndarray,
+                  device=None):
+        """One mapping pass of ``plan`` through the system's mapping program
+        of ``signature``, on ``device`` (the coarse expert) when given:
+        every row's draws up front, on the main generator, in row order.
+        Under a runtime with more than one map block the program runs on
+        this rank's Z blocks and the grids come back assembled. Returns new
+        ``(grids, decoders, cams, losses)``."""
+        sched = schedule_arrays(plan, mcfg)
+        dev = self.device if device is None else device
+        valid_idx = to_device(np.flatnonzero(valid), self.device)
+        pixels = stack_draws([
+            draw_mapping_pixels(self.gen, valid_idx, pcfg.n_pixels, self.intr, self.device)
+            for _ in range(len(sched))
+        ], dev)
+        bounds, scene_bound = self.bounds, self.scene_bound
+        if device is not None:
+            grids, masks, decoders, bounds = (
+                _tree_to(t, device) for t in (grids, masks, decoders, bounds)
+            )
+            cams, colors, depths, scene_bound = (
+                t.to(device) for t in (cams, colors, depths, scene_bound)
+            )
+        grids, masks = self._blocks(grids), self._blocks(masks)
+        prog = self._programs.map_program(
+            signature, dev, pcfg, self.intr, self.rcfg, grids, decoders, cams,
+            rows=len(sched), kf=self._kf_slice(pcfg))
+        new_grids, new_decoders, new_cams, losses = prog.run(
+            grids, decoders, cams, masks, bounds, scene_bound, colors, depths,
+            valid, fixed, sched, pixels)
+        return self._assembled(new_grids), new_decoders, new_cams, losses
+
+    def _blocks(self, tree):
+        """This rank's Z blocks of every level (``MapKfRuntime.split``) under a
+        runtime with more than one map block; else ``tree`` itself."""
+        rt = self._runtime
+        return tree if rt is None or rt.mesh.n_map == 1 else rt.split(tree)
+
+    def _assembled(self, blocks):
+        """The whole grids from the map group's blocks (``MapKfRuntime.
+        assemble``), the inverse of :meth:`_blocks`."""
+        rt = self._runtime
+        return blocks if rt is None or rt.mesh.n_map == 1 else rt.assemble(blocks)
 
     def _merge_coarse_expert(self):
         """Publish the coarse expert's pass after the staged pass: its level

@@ -8,13 +8,18 @@ two ranks with a checkpoint, a resume and a restore at another ``map``.
 On a ``(1, 2)`` mesh also the system's kf-sharded mapping program against
 the eager sharded pass on both sampler routes, and a runtime-attached
 ``NiceSLAM`` through its programs (and after ``precompile``) against the
-eager runtime path, strict and async, bit for bit.
+eager runtime path, strict and async, bit for bit. On ``(2, 1)`` and
+``(2, 2)`` (with the TV term) the system's map-sharded mapping program
+(its segments between a fixed set of collectives) against the eager
+sharded pass, the port unsharded and the JAX program on both routes, with
+the collectives of an iteration counted; on ``(2, 1)`` the system through
+its programs and after ``precompile`` as on ``(1, 2)``.
 
 One spawn per world (2 ranks: ``(map, kf) = (2, 1), (1, 2)``, the kf
-program and the system; 4 ranks: ``(2, 2)`` with the TV term) from a
-module-scoped fixture; each case is its own test on the fixture's
-results. The JAX side runs here on the suite's virtual CPU devices, once
-per mesh shape.
+program, the map program and the system on both meshes; 4 ranks:
+``(2, 2)`` with the TV term and its map program) from a module-scoped
+fixture; each case is its own test on the fixture's results. The JAX side
+runs here on the suite's virtual CPU devices, once per mesh shape.
 """
 import dataclasses
 import json
@@ -75,6 +80,9 @@ N_PIXELS, ITERS, TV = 64, 4, 0.05
 # (n_map, n_kf, tv_weight); the world of each is n_map * n_kf ranks.
 CASES = ((2, 1, 0.0), (1, 2, 0.0), (2, 2, TV))
 IDS = [f"map{m}-kf{k}{'-tv' if tv else ''}" for m, k, tv in CASES]
+# The cases with more than one map block: the map-sharded program's.
+MAP_CASES = tuple(c for c in CASES if c[0] > 1)
+MAP_IDS = [i for c, i in zip(CASES, IDS) if c[0] > 1]
 ROUTES = ("fused", "packed")
 SYNCS = ("strict", "async")
 SLAM_FRAMES = 5
@@ -150,31 +158,51 @@ def _kf_program_args(world, route):
     return a
 
 
-def _slam_cfg():
+def _map_program_args(world, tv, route):
+    """``(2, *)``'s staged pass (middle, middle, fine, color; BA) on
+    ``route`` for ``map_program_job``."""
+    a, _ = _port_args(world, tv)
+    a["route"] = route
+    return a
+
+
+def _slam_cfg(n_map=1):
     """The programs suite's tiny system (``configs/cofusion.yaml``: coarse
-    pass, BA, color refinement) on two kf ranks: 48 rays a row."""
+    pass, BA, color refinement) on two ranks, on kf (48 rays a row) or with
+    ``n_map = 2`` on map."""
     from test_torch_programs import CONFIG, TINY
 
-    return load_config(CONFIG, overrides={**TINY, "parallel.n_processes": 2})
+    return load_config(CONFIG, overrides={**TINY, "parallel.n_processes": 2,
+                                          "parallel.map": n_map})
 
 
 @pytest.fixture(scope="module")
 def spawned(world, tmp_path_factory):
     """``out[job][rank]`` for one spawn per world: the sharded mapping pass
-    of each case (``out[case]``); on 2 ranks also the kf-sharded program
-    against the eager pass on each route (``out["kf_program", route]``) and
-    the runtime-attached system (``out["slam"]``)."""
+    of each case (``out[case]``) and, with more than one map block, the
+    map-sharded program against it on each route (``out["map_program",
+    case, route]``); on 2 ranks also the kf-sharded program against the
+    eager pass on each route (``out["kf_program", route]``) and the
+    runtime-attached system on (1, 2) and (2, 1) (``out["slam"]``,
+    ``out["slam", 2]``)."""
     out = {}
     for n in (2, 4):
         cases = [c for c in CASES if c[0] * c[1] == n]
         jobs = [("mapping", m, k, _port_args(world, tv)[0]) for m, k, tv in cases]
         names = list(cases)
+        for case in (c for c in cases if c in MAP_CASES):
+            jobs += [("map_program", case[0], case[1], _map_program_args(world, case[2], r))
+                     for r in ROUTES]
+            names += [("map_program", case, r) for r in ROUTES]
         if n == 2:
             jobs += [("kf_program", 1, 2, _kf_program_args(world, r)) for r in ROUTES]
             names += [("kf_program", r) for r in ROUTES]
             jobs.append(("slam", 1, 2, dict(cfg=_slam_cfg(), frames=SLAM_FRAMES, seed=3,
                                             syncs=SYNCS)))
             names.append("slam")
+            jobs.append(("slam", 2, 1, dict(cfg=_slam_cfg(2), frames=SLAM_FRAMES, seed=3,
+                                            syncs=SYNCS)))
+            names.append(("slam", 2))
         out.update(zip(names, run_ranks(n, jobs, tmp_path_factory.mktemp(f"map{n}"))))
     return out
 
@@ -351,6 +379,7 @@ def test_precompile_under_a_runtime_draws_nothing(spawned):
     collective, and leaves the trajectory and grids as they were."""
     got = spawned["slam"][0]
     assert not got["precompile/drew"]
+    assert int(got["precompile/collectives"]) == 0
     assert int(got["precompile/tracking"]) == 1
     cfg = _slam_cfg()
     slam = NiceSLAM(cfg, reader=SyntheticBoxReader(cfg, n_frames=2), device="cpu")
@@ -361,6 +390,111 @@ def test_precompile_under_a_runtime_draws_nothing(spawned):
     for key in [k for k in got if k.startswith("precompiled/")]:
         np.testing.assert_array_equal(
             got[key], got[key.replace("precompiled/", "programs/", 1)], err_msg=key)
+
+
+# ------------------------------------------------ the map-sharded program
+def _kind(got, kind):
+    """One side of a ``map_program_job`` result, keyed as ``mapping_job``'s."""
+    return {k[len(kind) + 1:]: v for k, v in got.items() if k.startswith(kind + "/")}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("case", MAP_CASES, ids=MAP_IDS)
+def test_map_program_matches_the_eager_sharded_pass(spawned, unsharded, case, route):
+    """The system's map-sharded ``MappingProgram`` (capture off: the
+    segment bodies that a card replays as graphs around the collectives)
+    against ``rt.run_schedule``, the eager sharded pass whose collectives
+    sit inside the halo sampler, on the same draws with BA, on both sampler
+    routes, and against the port unsharded: at the tolerances of
+    ``test_sharded_run_schedule_matches_unsharded`` (losses 2e-4, grids,
+    decoders and cameras 2e-5); every rank holds the same result bit for
+    bit. The program adds the cameras' two gradient terms, and the halo
+    row's gradient to the block's own, in another order than autograd."""
+    ranks = spawned["map_program", case, route]
+    _ranks_agree(ranks)
+    program = _kind(ranks[0], "program")
+    assert np.isfinite(program["loss"]).all() and program["loss"].shape == (ITERS,)
+    _hold(program, _kind(ranks[0], "eager"), f"{case} {route}: program vs eager")
+    _hold(program, unsharded[case[2]], f"{case} {route}: program vs the port unsharded")
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("case", MAP_CASES, ids=MAP_IDS)
+def test_map_program_matches_jax(spawned, jax_sharded, case, route):
+    """The map-sharded program against the JAX sharded program on the same
+    draws, at ``test_sharded_run_schedule_matches_jax``'s tolerances."""
+    _hold(_kind(spawned["map_program", case, route][0], "program"), jax_sharded[case],
+          f"{case} {route}: program vs JAX", loss_tol=(2e-4, 1e-5), tol=(0.0, 1e-4))
+
+
+@pytest.mark.parametrize("case", MAP_CASES, ids=MAP_IDS)
+def test_map_program_collectives_per_iteration(spawned, case):
+    """An iteration of the map-sharded program makes the collectives of its
+    segment plan, the same for every stage however many levels it samples:
+    3 with one kf rank, 4 with two (``parallel/mesh.CALLS``). The eager
+    pass makes up to four per sampled level, three per TV level, and the
+    kf sum."""
+    want = 3 if case[1] == 1 else 4
+    for route in ROUTES:
+        got = spawned["map_program", case, route][0]
+        assert got["plan/collectives"].tolist() == [want], route
+        assert float(got["program/collectives"]) == want, route
+        assert float(got["eager/collectives"]) > want, route
+
+
+@pytest.mark.parametrize("sync", SYNCS)
+def test_runtime_system_at_map_2_through_programs_equals_the_eager_runtime_path(spawned, sync):
+    """A ``NiceSLAM`` on a 2 x 1 mesh (capture off) through its programs,
+    every pass in the map-sharded program on the rank's Z blocks, gives the
+    trajectory and grids of the eager runtime path (``rt.run_schedule`` per
+    chunk, the collectives inside the halo sampler) bit for bit, on every
+    rank, in strict and async sync. Bit for bit here, not only within the
+    program's tolerance: no pass of these frames runs BA or the TV term,
+    and every sum over the map group has two terms."""
+    ranks = spawned["slam", 2]
+    _ranks_agree(ranks)
+    got = ranks[0]
+    keys = [k for k in got if k.startswith(f"programs/{sync}/")
+            and k.split("/")[2] in ("poses", "grid")]
+    assert len(keys) == 5
+    for key in keys:
+        np.testing.assert_array_equal(got[key], got[key.replace("programs/", "eager/", 1)],
+                                      err_msg=key)
+    poses = got[f"programs/{sync}/poses"]
+    assert poses.shape == (SLAM_FRAMES, 4, 4) and np.isfinite(poses).all()
+    assert int(got[f"programs/{sync}/map_events"]) > SLAM_FRAMES
+    assert int(got[f"programs/{sync}/mapping_programs"]) >= 2
+
+
+def test_precompile_at_map_2_draws_nothing_and_runs_no_collective(spawned):
+    """``precompile()`` on a 2 x 1 mesh makes the map-sharded program of
+    every JAX signature on the rank's blocks, draws nothing, issues no
+    collective, and leaves the trajectory and grids as they were."""
+    got = spawned["slam", 2][0]
+    assert not got["precompile/drew"]
+    assert int(got["precompile/collectives"]) == 0
+    cfg = _slam_cfg(2)
+    slam = NiceSLAM(cfg, reader=SyntheticBoxReader(cfg, n_frames=2), device="cpu")
+    assert [tuple(s) for s in got["precompile/mapping"].tolist()] == sorted(
+        slam._precompile_signatures())
+    assert bool(got["precompile/mapping_kf"])
+    for key in [k for k in got if k.startswith("precompiled/")]:
+        np.testing.assert_array_equal(
+            got[key], got[key.replace("precompiled/", "programs/", 1)], err_msg=key)
+
+
+def test_runtime_refuses_n_importance_with_more_than_one_map_block():
+    """``rendering.N_importance > 0`` makes a second point set from the
+    first one's summed features: ``map > 1`` refuses it when it attaches,
+    ``map = 1`` takes it."""
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering, N_importance=4))
+    reader = SyntheticBoxReader(cfg, n_frames=2)
+    with pytest.raises(ValueError, match="N_importance"):
+        MapKfRuntime(MapKfMesh(2, 1, 0, 0), "cpu", None).attach(
+            NiceSLAM(cfg, reader=reader, device="cpu"))
+    MapKfRuntime(MapKfMesh(1, 2, 0, 0), "cpu", None).attach(
+        NiceSLAM(cfg, reader=reader, device="cpu"))
 
 
 # ---------------------------------------------------------------- runtime
@@ -515,7 +649,7 @@ def test_cli_two_ranks_checkpoint_resume_and_restore_at_another_map(tmp_path):
     """Two ranks (map = 2, async) for 3 frames with a checkpoint every
     frame: rank 0 alone writes and prints, the ranks end on the same
     trajectory (the command checks it), the first event of a rank's log is
-    the runtime; a resume from frame 1 on two ranks in strict sync, and a
+    the runtime and the last its programs (eager on the CPU); a resume from frame 1 on two ranks in strict sync, and a
     restore of the same padded checkpoint on one rank (map = 1), continue
     from the restored poses."""
     cfg_path = _tiny_yaml(tmp_path)
@@ -530,6 +664,10 @@ def test_cli_two_ranks_checkpoint_resume_and_restore_at_another_map(tmp_path):
     for r, recs in logs.items():
         assert recs[0]["event"] == "runtime" and recs[0]["rank"] == r
         assert recs[0]["backend"] == "gloo" and (recs[0]["map"], recs[0]["kf"]) == (2, 1)
+        # On the CPU the programs run eagerly: no graph is captured.
+        progs = {k: recs[-1].get(k) for k in ("event", "graphed", "graphs", "map_segments")}
+        assert progs == {"event": "programs", "graphed": False, "graphs": {},
+                         "map_segments": []}
     saved = torch.load(a / "ck" / "frame_000001", weights_only=True)
     assert all(g.shape[0] % 2 == 0 for g in saved["grids"].values())
 

@@ -565,6 +565,50 @@ def test_a_capture_that_makes_a_buffer_raises(fake_card):
             torch.device("cuda", 0), "fresh output", body, lambda: list(out.values()))
 
 
+def test_map_program_captures_every_segment_into_the_card_pool(fake_card):
+    """A system on each rank of a 2 x 1 mesh (no process group: a
+    collective would raise) precompiled with capture on, through the host
+    stand-ins: each stage's map-sharded iteration is four captures (halo
+    rows, local samples, loss and gradients, returned gradients and the
+    step), on the card's one stream into its one pool, on the rank's Z
+    blocks; no capture makes a buffer or issues a collective, and the
+    warm-ups leave the map and the generator as they were. The first block
+    keeps ``cat(block, halo)`` in a buffer of its own; the last reads its
+    block alone."""
+    from niceslam_tpu_torch.parallel.mesh import CALLS, MapKfMesh
+    from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+
+    segments = ["halo", "sample", "grads", "gather+step"]
+    for map_i in (0, 1):
+        system = _slam(**{"parallel.n_processes": 2, "parallel.map": 2})
+        rt = MapKfRuntime(MapKfMesh(2, 1, map_i, 0), "cpu", None)
+        rt.attach(system)
+        system._programs = progs = programs.Programs(capture=True)
+        before = tree_map(torch.clone, (system.state.grids, system.state.decoders))
+        state, calls = system.gen.get_state(), CALLS["all_reduce"]
+        system.precompile()
+        assert CALLS["all_reduce"] == calls
+        assert _equal_trees((system.state.grids, system.state.decoders), before)
+        assert torch.equal(system.gen.get_state(), state)
+        maps = [c.signature.split(" route=")[0].split() for c in progs.captures
+                if c.signature.startswith("map ")]
+        assert all(sig[-3:-1] == ["map=2x1", f"rank={map_i},0"] for sig in maps)
+        by_stage = {}
+        for sig in maps:
+            by_stage.setdefault(tuple(sig[:5]), []).append(sig[-1])
+        assert by_stage and all(segs == segments for segs in by_stage.values())
+        for prog in progs.mapping.values():
+            seg = prog.segments
+            blocks = prog.pp.params["grids"]
+            assert all(blocks[lvl].shape[0] * 2 == g.shape[0]
+                       for lvl, g in system.state.grids.items())
+            assert all(any(t is b for t in prog.buffers()) for b in seg.buffers())
+            assert set(prog.graphs) <= set(seg.layouts)
+            assert all((s.local is not None) == (map_i == 0) for s in seg.samplers.values())
+        assert len(fake_card) == len(progs.captures) and len(set(fake_card)) == 1
+        fake_card.clear()
+
+
 def test_every_program_makes_its_buffers_before_its_capture(world, fake_card):
     """Every program kind captured through the host stand-ins (a capture
     that made a buffer would raise): a system's precompiled mapping, solve

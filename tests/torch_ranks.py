@@ -186,22 +186,67 @@ def kf_program_job(n_map, n_kf, p):
     return out
 
 
-def _eager_runtime(mesh):
-    """A runtime whose passes run eagerly whatever its mesh, as every
-    runtime's did before the kf-sharded program: the reference of
-    :func:`slam_job`."""
+def map_program_job(n_map, n_kf, p):
+    """On a mesh with more than one map block, ``p``'s staged pass through
+    the system's map-sharded ``MappingProgram`` (capture off: the segment
+    bodies that a card replays as graphs) and through ``rt.run_schedule``
+    (the eager sharded pass) on the same injected draws, on the route
+    ``p["route"]``: each one's losses, assembled grids, decoder leaves and
+    cameras (``program/...``, ``eager/...``), each one's collectives per
+    row, and the collectives of the program's segment plan of every stage
+    of the pass."""
+    from niceslam_tpu_torch.models.decoders import tree_leaves
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+    from niceslam_tpu_torch.parallel.mesh import CALLS, make_mesh
     from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
+    from niceslam_tpu_torch.slam import mapper
+    from niceslam_tpu_torch.slam.programs import Programs
 
-    class EagerRuntime(MapKfRuntime):
-        eager_passes = True
-
-    return EagerRuntime(mesh, "cpu", "gloo")
+    rt = MapKfRuntime(make_mesh(n_map, n_kf), "cpu", "gloo")
+    grids, masks, dec, cams = (_t(p[k]) for k in ("grids", "masks", "decoders", "cams"))
+    bounds, sb, colors, depths = (_t(p[k]) for k in ("bounds", "scene_bound", "colors",
+                                                       "depths"))
+    sched, pcfg = p["sched"], p["pcfg"]
+    rows = len(sched)
+    draws = [tuple(torch.from_numpy(a).long() for a in p["pixels"][it]) for it in range(rows)]
+    blocks, mblocks = rt.split(grids), rt.split(masks)
+    out = {}
+    with sampler_route(p["route"]):
+        pp = mapper.make_pass_params(blocks, dec, cams, pcfg)
+        c0 = CALLS["all_reduce"]
+        losses = rt.run_schedule(pp, mapper.init_opt_state(pp), sched, mblocks, bounds, sb,
+                                 p["intr"], colors, depths, p["valid"], p["fixed"], pcfg,
+                                 p["rcfg"], pixels=dict(enumerate(draws)))
+        c1 = CALLS["all_reduce"]
+        prog = Programs(capture=False).map_program(
+            (cams.shape[0], False, True), "cpu", pcfg, p["intr"], p["rcfg"], blocks, dec, cams,
+            rows, kf=rt.kf_slice(pcfg.n_pixels))
+        got = prog.run(blocks, dec, cams, mblocks, bounds, sb, colors, depths, p["valid"],
+                       p["fixed"], sched, mapper.stack_draws(draws, "cpu"))
+        c2 = CALLS["all_reduce"]
+        lrs = mapper.schedule_lrs(sched)
+        plans = {sum(seg.before is not None for seg in prog.plan(stage, zero))
+                 for (stage, zero), _ in prog._runs(sched, lrs)}
+    out.update({"eager/collectives": (c1 - c0) / rows, "program/collectives": (c2 - c1) / rows,
+                "plan/collectives": sorted(plans)})
+    for kind, (g, d, c, lo) in (("eager", (pp.params["grids"], pp.params["decoders"],
+                                           pp.params["cams"], losses)), ("program", got)):
+        out[f"{kind}/loss"] = lo
+        out[f"{kind}/cams"] = c
+        out.update({f"{kind}/grid/{k}": v for k, v in rt.assemble(g).items()})
+        out.update({f"{kind}/dec/{n}": t for n, t in enumerate(tree_leaves(d))})
+    return out
 
 
 def _eager_runtime_slam():
     """``NiceSLAM`` as it ran under a runtime before its programs: the pose
     solve by ``track_frame`` on the published map, the passes by
-    ``rt.run_schedule`` per chunk."""
+    ``rt.run_schedule`` (the eager sharded pass, its collectives inside the
+    halo sampler with ``map > 1``) per chunk of ``mapping.iters`` rows on
+    this rank's Z blocks, the grids assembled after each pass."""
+    import torch
+
+    from niceslam_tpu_torch.slam import mapper
     from niceslam_tpu_torch.slam.system import NiceSLAM
     from niceslam_tpu_torch.slam.tracker import track_frame
 
@@ -212,6 +257,23 @@ def _eager_runtime_slam():
                                self.intr, frame.color, frame.depth, init, self.tcfg,
                                self.rcfg, gen=self.gen)
 
+        def _map_pass(self, signature, plan, mcfg, pcfg, grids, masks, decoders, cams,
+                      colors, depths, valid, fixed, device=None):
+            rt = self._runtime
+            n_total = sum(n for _, n, _ in plan)
+            chunks, reals = mapper.chunked_schedule(plan, mcfg,
+                                                    min(self.cfg.mapping.iters, n_total))
+            pp = mapper.make_pass_params(rt.split(grids), decoders, cams, pcfg)
+            opt_state = mapper.init_opt_state(pp)
+            masks = rt.split(masks)
+            losses = torch.cat([
+                rt.run_schedule(pp, opt_state, chunk, masks, self.bounds, self.scene_bound,
+                                self.intr, colors, depths, valid, fixed, pcfg, self.rcfg,
+                                gen=self.gen)[:real]
+                for chunk, real in zip(chunks, reals)])
+            params = pp.params
+            return rt.assemble(params["grids"]), params["decoders"], params["cams"], losses
+
     return EagerRuntimeSLAM
 
 
@@ -221,12 +283,12 @@ def slam_job(n_map, n_kf, p):
     ``p["syncs"]``: through its programs (``programs/<sync>/...``), as the
     eager runtime path (``eager/<sync>/...``) and, for the first sync
     method, through its programs after ``precompile()`` (``precompiled/...``,
-    with whether ``precompile`` moved the generator and the programs it
-    made)."""
+    with whether ``precompile`` moved the generator, the collectives it
+    issued and the programs it made)."""
     import dataclasses
 
     from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
-    from niceslam_tpu_torch.parallel.mesh import make_mesh
+    from niceslam_tpu_torch.parallel.mesh import CALLS, make_mesh
     from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
     from niceslam_tpu_torch.slam.system import NiceSLAM
 
@@ -234,18 +296,19 @@ def slam_job(n_map, n_kf, p):
     out = {}
     for k, sync in enumerate(p["syncs"]):
         cfg = dataclasses.replace(p["cfg"], sync_method=sync)
-        runs = [("programs", NiceSLAM, rt), ("eager", _eager_runtime_slam(),
-                                             _eager_runtime(rt.mesh))]
+        runs = [("programs", NiceSLAM), ("eager", _eager_runtime_slam())]
         if k == 0:
-            runs.append(("precompiled", NiceSLAM, rt))
-        for kind, cls, runtime in runs:
+            runs.append(("precompiled", NiceSLAM))
+        for kind, cls in runs:
             slam = cls(cfg, reader=SyntheticBoxReader(cfg, n_frames=p["frames"]), seed=p["seed"],
                        device="cpu")
-            runtime.attach(slam)
+            rt.attach(slam)
             if kind == "precompiled":
                 state = slam.gen.get_state()
+                calls = CALLS["all_reduce"]
                 slam.precompile()
                 progs = slam._programs
+                out["precompile/collectives"] = CALLS["all_reduce"] - calls
                 out["precompile/drew"] = not torch.equal(slam.gen.get_state(), state)
                 out["precompile/tracking"] = len(progs.tracking)
                 out["precompile/mapping"] = sorted(prog.signature for prog in progs.mapping.values())
@@ -264,4 +327,4 @@ def slam_job(n_map, n_kf, p):
 
 
 JOBS = {"halo": halo_job, "mapping": mapping_job, "kf_program": kf_program_job,
-        "slam": slam_job}
+        "map_program": map_program_job, "slam": slam_job}
