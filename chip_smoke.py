@@ -136,7 +136,15 @@ prints no result):
    at the bench configuration, ``precompile`` and the main path's frames
    graphed, then with ``capture=False``: every run's digest equal, no
    collective in ``precompile``, seconds per frame both ways, the ATE
-   under ``ATE_LOST_CM``, each rank's graph pool and peak memory.
+   under ``ATE_LOST_CM``, each rank's graph pool and peak memory. With
+   ``rendering.N_importance = N_IMPORTANCE`` (phase 15): the 12-iteration
+   pass at (2, 1) and (2, 2) on both routes, as the eager pass (held
+   against the unsharded pass on the same route in its first row: loss
+   and summed gradients; the later rows printed) and as the map program
+   (its first loss held alike; one more segment and
+   all_reduce: 4 or 5 a row), graphed against ``capture=False`` bit for
+   bit, launches included; and a (2, 1) system on phase 15's cut, graphed
+   and eager, one digest on both ranks.
    (b) ``NiceSLAM`` with ``parallel.track_role`` and ``parallel.stage_ep``
    on the devices ``[cuda:0, cuda:0]``, the fused strict main path: its
    digest must equal phase 4's. (c) ``python -m niceslam_tpu_torch
@@ -145,10 +153,13 @@ prints no result):
    frames, checkpoints every 2 frames), then a resume from frame 2; then
    ``configs/apartment_multihost.yaml`` on 2 ranks on its own mesh (``map
    = 1``, ``kf = 0``: every rank on kf), 4096 rays, synthetic scene,
-   ``iters_first`` cut to 300, 5 frames: every rank exits 0 (the command
-   fails when the ranks' trajectories differ), no lost track, ``fps_avg``
-   and each rank's launches, peak memory and graph pool printed. Both
-   command lines run their passes graphed.
+   ``iters_first`` cut to 300, 5 frames; then ``cofusion.yaml`` on 2
+   ranks (``map = 2``, ``kf = 1``) at ``rendering.N_importance =
+   N_IMPORTANCE``, 3 frames, whose passes must replay the importance
+   segment: every rank exits 0 (the command fails when the ranks'
+   trajectories differ), no lost track, ``fps_avg`` and each rank's
+   launches, peak memory and graph pool printed. Every command line runs
+   its passes graphed.
 
 12. pretraining: one step of ``pretrain_decoders`` at the bench envelope
    and full width (batch 4096, ``GridConfig()``, ``DecoderConfig()``), card
@@ -167,13 +178,15 @@ prints no result):
    for the stream (``set_sync_debug_mode("warn")``); every scene's loss
    finite and falling; the written ``.npz`` loads and gives a finite field.
 
-13. graphs against eager: phase 4's main path again with ``capture=False``
-   (every iteration and keyframe program launched from Python), fused,
-   then packed, then phase 7's async run: each must give the digest and
-   the launches of its graphed run. Seconds per frame and peak memory both
-   ways; on the fused route two more frames (tracking only, then a mapping
-   event) under ``torch.profiler`` after each 8-frame run, for the card's
-   busy share graphed and eager.
+13. graphs against eager: the main path cut to ``CUT`` (2 frames,
+   ``iters_first`` 100) graphed and with ``capture=False`` (every
+   iteration and keyframe program launched from Python), fused, then
+   packed, then async as phase 7 runs it: each eager run must give the
+   digest and the launches of its graphed run. Seconds per frame and peak
+   memory both ways; on the fused route one more frame (a mapping event)
+   of the eager cut run under ``torch.profiler``, for the card's busy share
+   eager, beside the graphed one of two more frames after phase 4's
+   (tracking only, then a mapping event).
 
 14. measurement entry points, each through its ``main`` as a user calls
    it, cut: ``niceslam_tpu_torch.bench`` at 12 frames x 2 seeds, async,
@@ -189,7 +202,19 @@ prints no result):
    record with the JAX script's keys for each of its 28 ops, finite
    positive times and bounds).
 
-Phases 4, 7, 8, 9, 10, 11 (b) and 12 run graphed, as ``NiceSLAM``,
+15. the importance pass: phase 4's fused main path at
+   ``rendering.N_importance = N_IMPORTANCE`` (graphed, strict): no lost
+   track; no call inside a pose solve's or a mapping pass's program waits
+   for the stream (``set_sync_debug_mode``, captures excepted: the
+   importance pass's ``cumsum``, ``searchsorted``, ``sort`` and ``gather``
+   run in the graphs); K1 launched exactly twice as often as in phase 4
+   (each render evaluates two point sets) and K2 as often (it
+   differentiates the second); seconds per frame beside phase 4's, graph
+   pool and peak memory; one 640x480 panel graphed against eager, bit for
+   bit; then the cut of phase 13 (``CUT``) graphed and with
+   ``capture=False``: one digest, the same launches.
+
+Phases 4, 7, 8, 9, 10, 11 (b), 12 and 15 run graphed, as ``NiceSLAM``,
 ``render_image``, the mesher and ``pretrain_decoders`` do on a card; so
 do phase 11's command lines, its systems and its programs, every pass
 there a few graphs around eager all_reduces; the halo sampler and the
@@ -502,19 +527,19 @@ def snapshot(slam) -> dict:
 
 
 def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
-                    keep: int = 0, capture=None):
+                    keep: int = 0, capture=None, label: str = "", watch=None):
     """``NiceSLAM.step`` over ``n_frames`` under ``route`` (graphed, or eager
     with ``capture=False``); with ``keep`` the result holds a
     :func:`snapshot` after frame ``keep - 1`` and the grids after frame 0
-    (on the host)."""
-    from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY as bwd_tally
+    (on the host). ``label`` names the run in the log; ``watch``, a
+    context manager, is entered around the frames (not ``precompile``)."""
     from niceslam_tpu_torch.ops.trilerp_kernels import FWD_TALLY as tally
     from niceslam_tpu_torch.ops.trilinear import sampler_route
 
     slam, reader = new_slam(cfg, n_frames, seed, capture)
     frames = [reader[k] for k in range(n_frames)]
     kept = kept0 = None
-    tag = f"[{route}]{' eager' if capture is False else ''} seed {seed}"
+    tag = f"[{route}]{' eager' if capture is False else ''}{label} seed {seed}"
     t0 = time.perf_counter()
     with sampler_route(route):
         slam.precompile()
@@ -526,32 +551,14 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
     start_bytes = torch.cuda.memory_allocated()
     clear_tallies()
     dts = []
-    for k, frame in enumerate(frames):
-        t0 = time.perf_counter()
-        with sampler_route(route):
-            slam.step(frame)
-        torch.cuda.synchronize()
-        dts.append(time.perf_counter() - t0)
-        ev = [e for e in slam.events if e.get("frame") == k]
-        fr = ev[-1]
-        log(f"{tag} frame {k}: {dts[-1]:.3f} s (track {fr['dt_track']:.3f} s, map "
-            f"{fr['dt_map']:.3f} s)  " + " ".join(
-                f"{e['event']}({'coarse' if e.get('coarse') else 'staged'})"
-                for e in ev[:-1]))
-        if k == 0 and route == "packed":
-            # Not part of the main path: its launches are taken out again.
-            counts, split, split2 = all_launches(), dict(tally), dict(bwd_tally)
-            compare_routes_on_map(slam, frame, cfg)
-            set_launches(counts)
-            tally.clear()
-            tally.update(split)
-            bwd_tally.clear()
-            bwd_tally.update(split2)
-        if keep and k == 0:
-            # On the host: not part of the run's device memory.
-            kept0 = {k: v.cpu() for k, v in slam.state.grids.items()}
-        if k == keep - 1:
-            kept = snapshot(slam)
+    with watch if watch is not None else contextlib.nullcontext():
+        for k, frame in enumerate(frames):
+            dts.append(_main_path_frame(slam, frame, k, route, tag, cfg))
+            if keep and k == 0:
+                # On the host: not part of the run's device memory.
+                kept0 = {k: v.cpu() for k, v in slam.state.grids.items()}
+            if k == keep - 1:
+                kept = snapshot(slam)
     peak = torch.cuda.max_memory_allocated()
     launches = all_launches()
     log(f"{tag}: main-path launches: {launches}")
@@ -593,6 +600,34 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
                 peak_bytes=peak, start_bytes=start_bytes, kept=kept, kept0=kept0,
                 seed=seed, route=route, n_frames=n_frames, poses=poses,
                 grids=slam.state.grids)
+
+
+def _main_path_frame(slam, frame, k: int, route: str, tag: str, cfg) -> float:
+    """One frame of :func:`phase_main_path`; returns its seconds."""
+    from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY as bwd_tally
+    from niceslam_tpu_torch.ops.trilerp_kernels import FWD_TALLY as tally
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+
+    t0 = time.perf_counter()
+    with sampler_route(route):
+        slam.step(frame)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ev = [e for e in slam.events if e.get("frame") == k]
+    fr = ev[-1]
+    log(f"{tag} frame {k}: {dt:.3f} s (track {fr['dt_track']:.3f} s, map "
+        f"{fr['dt_map']:.3f} s)  " + " ".join(
+            f"{e['event']}({'coarse' if e.get('coarse') else 'staged'})" for e in ev[:-1]))
+    if k == 0 and route == "packed":
+        # Not part of the main path: its launches are taken out again.
+        counts, split, split2 = all_launches(), dict(tally), dict(bwd_tally)
+        compare_routes_on_map(slam, frame, cfg)
+        set_launches(counts)
+        tally.clear()
+        tally.update(split)
+        bwd_tally.clear()
+        bwd_tally.update(split2)
+    return dt
 
 
 def log_captures(tag: str, slam):
@@ -1270,6 +1305,17 @@ class _Holder:
 
 
 # ---------------------------------------------------------------- phase 13
+# The cut main path (frames, mapping.iters_first) that phases 13 and 15 run
+# graphed and eagerly, and phase 11's system with the importance pass: frame
+# 0's pass and one frame of tracking and mapping.
+CUT = (2, 100)
+
+
+def cut_config(cfg, iters_first: int):
+    return dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping,
+                                                                 iters_first=iters_first))
+
+
 def frame_seconds(dts) -> str:
     """Seconds of frame 0, frames 1-5, frame 6 and frame 7 (PERF.md §5's
     columns) where the run has them, and after frame 0 in all."""
@@ -1282,8 +1328,8 @@ def frame_seconds(dts) -> str:
 
 def trace_busy(slam, reader, tag: str, n: int = 2):
     """``n`` more frames of a finished strict main path under
-    ``torch.profiler`` (a tracking-only frame, then the last frame's
-    mapping event): the card's busy share, its kernel and copy time over
+    ``torch.profiler`` (after 8 frames: a tracking-only frame, then the
+    last frame's mapping event): the card's busy share, its kernel and copy time over
     the wall of the profiled frames (synchronised); None where the trace
     holds no device time."""
     from torch.autograd import DeviceType
@@ -1308,40 +1354,49 @@ def trace_busy(slam, reader, tag: str, n: int = 2):
     return share
 
 
-def phase_graphs(cfg, graphed: dict, graphed_async: dict, graphed_busy):
-    """The main path eagerly (``capture=False``) in this call against the
-    graphed runs of phases 4 and 7, on the fused route, then the packed
-    one, then async: equal digests and equal launches of every kernel;
-    seconds per frame and peak memory both ways; on the fused route the
-    busy share over two more traced frames, beside the graphed run's."""
-    eager = {}
+def phase_graphs(cfg, graphed_busy):
+    """The main path cut to ``CUT`` (frames, ``iters_first``) graphed and
+    eagerly (``capture=False``) in this call, on the fused route, then the
+    packed one, then async: equal digests and equal launches of every
+    kernel; seconds per frame and peak memory both ways; on the fused route
+    the eager run's busy share over one more traced frame (a mapping
+    event), beside the 8-frame graphed run's (``graphed_busy``)."""
+    frames, iters_first = CUT
+    ccfg = cut_config(cfg, iters_first)
+    strict = {}
     for route in ("fused", "packed"):
-        g = graphed[route]
-        run = eager[route] = phase_main_path(cfg, g["n_frames"], route=route, capture=False)
-        g_digest, e_digest = digest(g["poses"], g["grids"]), digest(run["poses"], run["grids"])
-        log(f"graphs [{route}]: seconds per frame graphed {frame_seconds(g['dts'])}; eager "
-            f"{frame_seconds(run['dts'])}")
-        log(f"graphs [{route}]: peak device memory graphed {g['peak_bytes'] / 2**20:.1f} MiB "
+        g, e = (phase_main_path(ccfg, frames, route=route, capture=c, label=" cut")
+                for c in (None, False))
+        g_digest, e_digest = digest(g["poses"], g["grids"]), digest(e["poses"], e["grids"])
+        log(f"graphs [{route}] cut: seconds per frame graphed {frame_seconds(g['dts'])}; eager "
+            f"{frame_seconds(e['dts'])}")
+        log(f"graphs [{route}] cut: peak device memory graphed {g['peak_bytes'] / 2**20:.1f} MiB "
             f"({(g['peak_bytes'] - g['start_bytes']) / 2**20:.1f} over its start), eager "
-            f"{run['peak_bytes'] / 2**20:.1f} MiB "
-            f"({(run['peak_bytes'] - run['start_bytes']) / 2**20:.1f} over its start)")
-        log(f"graphs [{route}]: sha1 graphed {g_digest}, eager {e_digest}")
+            f"{e['peak_bytes'] / 2**20:.1f} MiB "
+            f"({(e['peak_bytes'] - e['start_bytes']) / 2**20:.1f} over its start)")
+        log(f"graphs [{route}] cut: sha1 graphed {g_digest}, eager {e_digest}")
         if g_digest != e_digest:
             raise AssertionError(f"graphs [{route}]: the graphed and eager main paths differ")
-        if g["launches"] != run["launches"]:
+        if g["launches"] != e["launches"]:
             raise AssertionError(f"graphs [{route}]: launches graphed {g['launches']}, eager "
-                                 f"{run['launches']}")
+                                 f"{e['launches']}")
         if route == "fused":
-            busy = trace_busy(run["slam"], run["reader"], "graphs [fused] eager")
-            log(f"graphs [fused]: busy share graphed {graphed_busy}, eager {busy}")
-        del run["slam"]
-    a = phase_async(cfg, eager["fused"], capture=False)
-    log(f"graphs [fused] async: sha1 graphed {graphed_async['digest']}, eager {a['digest']}; "
-        f"host seconds per frame graphed {[round(d, 4) for d in graphed_async['dts']]}, eager "
-        f"{[round(d, 4) for d in a['dts']]}")
-    if a["digest"] != graphed_async["digest"] or a["launches"] != graphed_async["launches"]:
-        raise AssertionError(f"graphs async: graphed {graphed_async['digest']} "
-                             f"{graphed_async['launches']}, eager {a['digest']} {a['launches']}")
+            busy = trace_busy(e["slam"], e["reader"], "graphs [fused] cut eager", n=1)
+            log(f"graphs [fused]: busy share graphed {graphed_busy} (frames 8-9 of phase 4), "
+                f"eager {busy} (frame {frames} of the cut)")
+            strict = {"graphed": g, "eager": e}
+        del g["slam"], e["slam"]
+    a = {way: phase_async(ccfg, strict[way], capture=c)
+         for way, c in (("graphed", None), ("eager", False))}
+    log(f"graphs [fused] async cut: sha1 graphed {a['graphed']['digest']}, eager "
+        f"{a['eager']['digest']}; host seconds per frame graphed "
+        f"{[round(d, 4) for d in a['graphed']['dts']]}, eager "
+        f"{[round(d, 4) for d in a['eager']['dts']]}")
+    if (a["eager"]["digest"] != a["graphed"]["digest"]
+            or a["eager"]["launches"] != a["graphed"]["launches"]):
+        raise AssertionError(f"graphs async: graphed {a['graphed']['digest']} "
+                             f"{a['graphed']['launches']}, eager {a['eager']['digest']} "
+                             f"{a['eager']['launches']}")
     log("graphs: the graphed main path equals the eager one bit for bit, with the same "
         "launches, on both routes and in both sync methods")
 
@@ -1911,13 +1966,26 @@ def _timed(fn):
             ALL_REDUCE["calls"] - calls0)
 
 
-def _mapping_job(path, n_map, n_kf, which, rank=0):
-    """The sharded ``run_schedule`` of pass ``which`` saved at ``path``;
-    returns its losses, its first row's summed gradients and its final
-    parameters against the unsharded pass saved there. With one map block
-    the system's kf-sharded program too, graphed (its second run, after
-    the capture), which must equal the eager pass bit for bit, launches
-    included; both timed, with their all_reduce time."""
+def _mapping_job(path, n_map, n_kf, which, route="fused", rank=0):
+    """The sharded ``run_schedule`` of pass ``which`` saved at ``path``, on
+    ``route``; returns its losses, its first row's summed gradients and its
+    final parameters against the unsharded pass saved there. With one map
+    block the system's kf-sharded program too, graphed (its second run,
+    after the capture), which must equal the eager pass bit for bit,
+    launches included; both timed, with their all_reduce time. A pass with
+    the importance pass is held against the unsharded one on its route in
+    its first row only (its loss and summed gradients, and the map
+    program's first loss): both start from the same parameters there, but
+    after the first step the two place the last importance sample of a few
+    rays a bin apart (``tests/test_torch_importance.py``), which the
+    free-space term supervises, so the later rows are printed."""
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
+
+    with sampler_route(route):
+        return _mapping_job_on_route(path, n_map, n_kf, which, route, rank)
+
+
+def _mapping_job_on_route(path, n_map, n_kf, which, route, rank):
     from niceslam_tpu_torch.models.decoders import tree_leaves
     from niceslam_tpu_torch.parallel.mesh import make_mesh
     from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
@@ -1936,14 +2004,21 @@ def _mapping_job(path, n_map, n_kf, which, rank=0):
             a["colors"], a["depths"], a["valid"], a["fixed"], a["pcfg"], a["rcfg"],
             pixels=a["pixels"]))
     launches = all_launches()
-    check_route_launches(f"sharded pass {n_map}x{n_kf}", "fused", launches)
+    check_route_launches(f"sharded pass {n_map}x{n_kf}", route, launches)
     grids = rt.assemble(pp.params["grids"])
-    lo, want = losses.cpu(), ref["losses"].cpu()
-    out = dict(job="mapping", n_map=n_map, n_kf=n_kf, launches=launches,
-               diffs=state_errs(pass_state(pp, grids), ref), held=n_kf == 1,
+    lo, ref_lo = losses.cpu(), ref["losses"].cpu()
+    imp = a["rcfg"].n_importance
+
+    def loss_errs(got):
+        """Each row's loss error over its tolerance (2e-4)."""
+        return (got - ref_lo).abs() / (2e-4 + 2e-4 * ref_lo.abs())
+
+    out = dict(job="mapping", n_map=n_map, n_kf=n_kf, launches=launches, route=route,
+               importance=imp, diffs=state_errs(pass_state(pp, grids), ref),
+               held=n_kf == 1 and not imp,
                grad_err=grad_errs(pp, kept[0], ref["grads"], rt.mesh),
-               loss_first_equal=bool(lo[0] == want[0]),
-               loss_err=float(((lo - want).abs() / (2e-4 + 2e-4 * want.abs())).max()),
+               loss_first_equal=bool(lo[0] == ref_lo[0]),
+               loss_err=float(loss_errs(lo).max()), loss_first_err=float(loss_errs(lo)[0]),
                digest=digest(np.zeros((1, 4, 4), np.float32), grids),
                iters=int(len(lo)), ms=ms, all_reduce_ms=ar_ms)
     blocks = (lambda t: t) if n_map == 1 else rt.split
@@ -1970,11 +2045,11 @@ def _mapping_job(path, n_map, n_kf, which, rank=0):
         set_launches({})
         want, ref_ms, ref_ar_ms, _ = _timed(eager)
         want_launches = all_launches()
-        check_route_launches(f"map program {n_map}x{n_kf}", "fused", want_launches)
+        check_route_launches(f"map program {n_map}x{n_kf}", route, want_launches)
         lo_p = want[3].cpu()
         out.update(
-            program_loss_err=float(((lo_p - ref["losses"].cpu()).abs()
-                                    / (2e-4 + 2e-4 * ref["losses"].cpu().abs())).max()),
+            program_loss_err=float(loss_errs(lo_p).max()),
+            program_loss_first_err=float(loss_errs(lo_p)[0]),
             program_diffs=state_errs(dict(grids=rt.assemble(want[0]), cams=want[2],
                                           decoders=tree_leaves(want[1])), ref))
         want = (want[3], want[0], want[1], want[2])
@@ -1987,7 +2062,8 @@ def _mapping_job(path, n_map, n_kf, which, rank=0):
     equal = (torch.equal(glo, w_lo) and torch.equal(c, w_c)
              and all(torch.equal(g[k], v) for k, v in w_g.items())
              and all(torch.equal(x, y) for x, y in zip(tree_leaves(d), tree_leaves(w_d))))
-    per_row = 1 if n_map == 1 else 3 + (n_kf > 1)  # the segment plan's collectives
+    # The segment plan's collectives.
+    per_row = 1 if n_map == 1 else 3 + (n_kf > 1) + (imp > 0)
     if not equal or glaunches != want_launches or calls != per_row * len(sched):
         raise AssertionError(
             f"{'kf' if n_map == 1 else 'map'} program {n_map}x{n_kf} rank {rank}: graphed "
@@ -2001,11 +2077,13 @@ def _mapping_job(path, n_map, n_kf, which, rank=0):
     return out
 
 
-def _system_job(frames: int, iters_first: int, n_map: int = 1, n_kf: int = 2, rank=0):
-    """``NiceSLAM`` on the bench configuration attached to this rank of an
-    ``n_map x n_kf`` mesh, ``frames`` frames graphed (after
-    ``precompile``), then with ``capture=False``: each run's per-frame
-    seconds, digest, ATE, the process's graph pool and peak memory."""
+def _system_job(frames: int, iters_first: int, n_map: int = 1, n_kf: int = 2,
+                importance: bool = False, rank=0):
+    """``NiceSLAM`` on the bench configuration (with ``importance`` at
+    ``N_IMPORTANCE``) attached to this rank of an ``n_map x n_kf`` mesh,
+    ``frames`` frames graphed (after ``precompile``), then with
+    ``capture=False``: each run's per-frame seconds, digest, ATE, the
+    process's graph pool and peak memory."""
     from niceslam_tpu_torch.config.schema import ParallelConfig
     from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
     from niceslam_tpu_torch.parallel.mesh import make_mesh
@@ -2017,8 +2095,10 @@ def _system_job(frames: int, iters_first: int, n_map: int = 1, n_kf: int = 2, ra
     cfg = dataclasses.replace(
         cfg, parallel=ParallelConfig(n_processes=2, map=n_map, kf=n_kf),
         mapping=dataclasses.replace(cfg.mapping, iters_first=iters_first))
+    if importance:
+        cfg = with_importance(cfg)
     rt = MapKfRuntime(make_mesh(n_map, n_kf), "cuda:0", "gloo", rank, 2)
-    out = dict(job="system", mesh=f"{n_map}x{n_kf}")
+    out = dict(job="system", mesh=f"{n_map}x{n_kf}{f' imp{N_IMPORTANCE}' if importance else ''}")
     for tag, capture in (("graphed", None), ("eager", False)):
         reader = SyntheticBoxReader(cfg, n_frames=36)
         slam = NiceSLAM(cfg, reader=reader, seed=0, device="cuda:0", capture=capture)
@@ -2050,15 +2130,18 @@ def _system_job(frames: int, iters_first: int, n_map: int = 1, n_kf: int = 2, ra
 RANK_JOBS = {"halo": _halo_job, "mapping": _mapping_job, "system": _system_job}
 
 
-def mapping_pass_payload(cfg, run: dict, path: str, iters):
+def mapping_pass_payload(cfg, run: dict, path: str, iters, routes=("fused",)):
     """Full-width (``mapping.pixels``) mapping passes of frame 0's map
     (``run``'s grids after frame 0, padded for map = 2, its decoders): a
     window of frames 0 and 1 at their true poses, BA on frame 1, the
     system's own pass configuration (the shipped decoders stay frozen),
     the staged plan of each of ``iters`` iterations on draws made here.
-    Runs them unsharded on the card and saves them, their losses and
-    final states to ``path``; returns the last one's seconds."""
+    Runs them unsharded on the card under each of ``routes`` (passes in
+    that order, each route's in the order of ``iters``) and saves them,
+    their losses and final states to ``path``; returns the last one's
+    seconds."""
     from niceslam_tpu_torch.core.pose import tensor_from_camera
+    from niceslam_tpu_torch.ops.trilinear import sampler_route
     from niceslam_tpu_torch.parallel.sharded_mapper import pad_grid_for_sharding
     from niceslam_tpu_torch.slam import mapper
 
@@ -2086,10 +2169,10 @@ def mapping_pass_payload(cfg, run: dict, path: str, iters):
              scene_bound=slam.scene_bound, intr=slam.intr, colors=colors, depths=depths,
              valid=valid, fixed=fixed, pcfg=pcfg, rcfg=slam.rcfg, pixels=pixels)
     a["passes"] = []
-    for sched in scheds:
+    for route, sched in ((r, s) for r in routes for s in scheds):
         pp = mapper.make_pass_params(grids, slam.state.decoders, cams, pcfg)
         opt = mapper.init_opt_state(pp)
-        with first_grads() as kept:
+        with first_grads() as kept, sampler_route(route):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses = mapper.run_schedule(pp, opt, sched, masks, bounds, slam.scene_bound,
@@ -2098,7 +2181,7 @@ def mapping_pass_payload(cfg, run: dict, path: str, iters):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         a["passes"].append((sched, dict(pass_state(pp), losses=losses, grads=kept[0])))
-        log(f"multi: the unsharded pass ({len(sched)} iterations x {m.pixels} px, "
+        log(f"multi: the unsharded pass [{route}] ({len(sched)} iterations x {m.pixels} px, "
             f"Z {[g.shape[0] for g in grids.values()]}): {dt:.3f} s, losses "
             f"{losses[0].item():.6f} -> {losses[-1].item():.6f}")
     torch.save(a, path)
@@ -2157,15 +2240,24 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "pass.pt")
         dt_plain = mapping_pass_payload(cfg, run, path, iters)
+        # The longer pass again with the importance pass, on the map meshes.
+        imp_path = os.path.join(tmp, "pass_importance.pt")
+        mapping_pass_payload(with_importance(cfg), run, imp_path, iters[-1:],
+                             routes=tuple(ROUTE_KERNELS))
         for world, meshes in ((2, [(2, 1), (1, 2)]), (4, [(2, 2)])):
             jobs = [("halo", dict(shape=list(shapes[lvl]), route=route, n_map=world))
                     for lvl in ("fine", "middle") for route in ROUTE_KERNELS]
             jobs += [("mapping", dict(path=path, n_map=m, n_kf=k, which=w))
                      for m, k in meshes for w in range(len(iters))]
+            jobs += [("mapping", dict(path=imp_path, n_map=m, n_kf=k, which=w, route=route))
+                     for m, k in meshes if m > 1 for w, route in enumerate(ROUTE_KERNELS)]
             if world == 2:
                 jobs += [("system", dict(frames=run["n_frames"], n_map=m, n_kf=k,
                                          iters_first=cfg.mapping.iters_first))
                          for m, k in ((1, 2), (2, 1))]
+                frames, iters_first = CUT
+                jobs.append(("system", dict(frames=frames, n_map=2, n_kf=1, importance=True,
+                                            iters_first=iters_first)))
             t0 = time.perf_counter()
             res = spawn_ranks(world, jobs, deadline_s=900.0 if world == 2 else 300.0)
             log(f"multi: {world} ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s "
@@ -2176,11 +2268,14 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                         log_system_job(rank, r)
                         continue
                     what = (f"halo {r['route']} {r['shape']} map={r['n_map']} zb={r['zb']}"
-                            if r["job"] == "halo" else f"mapping {r['n_map']}x{r['n_kf']}")
+                            if r["job"] == "halo" else
+                            f"mapping {r['n_map']}x{r['n_kf']} [{r['route']}]"
+                            + (f" imp{r['importance']}" if r["importance"] else ""))
                     extra = (f"{r['ms']:.2f} ms (unsharded {r['ms_unsharded']:.2f}), err grid "
                              f"{r['err_grid']:.3e} pts {r['err_pts']:.3e}"
                              if r["job"] == "halo" else
-                             f"loss err/tol {r['loss_err']:.3f}, first loss bit-equal "
+                             f"loss err/tol {r['loss_err']:.3f} (first row "
+                             f"{r['loss_first_err']:.3f}), first loss bit-equal "
                              f"{r['loss_first_equal']}, {r['iters']} iterations, first-row "
                              f"gradients max rel err {r['grad_err']}, parameters max diffs "
                              f"{r['diffs']}{'' if r['held'] else ' (printed)'}, all_reduce "
@@ -2205,7 +2300,8 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                             f"{len(r['captures'])} captures {r['captures']}")
                     if "program_diffs" in r:
                         log(f"multi rank {rank}/{world}: {what} map program against the "
-                            f"unsharded pass: loss err/tol {r['program_loss_err']:.3f}, "
+                            f"unsharded pass: loss err/tol {r['program_loss_err']:.3f} "
+                            f"(first row {r['program_loss_first_err']:.3f}), "
                             f"parameters max diffs {r['program_diffs']}"
                             f"{'' if r['held'] else ' (printed)'}")
                     if r["job"] == "mapping":
@@ -2214,21 +2310,24 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                         bad.update({f"program {k}": v
                                     for k, v in r.get("program_diffs", {}).items()
                                     if r["held"] and not v <= 2e-5})
-                        if r.get("program_loss_err", 0.0) > 1.0:
-                            bad["program losses"] = r["program_loss_err"]
+                        # With the importance pass the first row only (the
+                        # job's docstring).
+                        rows = "first_" if r["importance"] else ""
+                        if r.get(f"program_loss_{rows}err", 0.0) > 1.0:
+                            bad["program losses"] = r[f"program_loss_{rows}err"]
                         bad.update({f"gradient {k}": v for k, v in r["grad_err"].items()
                                     if not v <= 2e-5})
-                        if r["loss_err"] > 1.0 or bad:
+                        if r[f"loss_{rows}err"] > 1.0 or bad:
                             raise AssertionError(f"multi: {what} differs from the unsharded "
-                                                 f"pass: losses {r['loss_err']:.3f} of the "
-                                                 f"tolerance, {bad}")
+                                                 f"pass: losses {r[f'loss_{rows}err']:.3f} of "
+                                                 f"the tolerance, {bad}")
             for rows in zip(*res):  # every rank of a job holds the same map
                 if rows[0]["job"] == "mapping" and len({r["digest"] for r in rows}) != 1:
                     raise AssertionError(f"multi: the ranks' maps differ: {rows}")
                 if rows[0]["job"] == "system":
                     check_system_job(rows)
             for r in res[0]:
-                if r["job"] == "mapping" and r["iters"] == max(iters):
+                if r["job"] == "mapping" and r["iters"] == max(iters) and not r["importance"]:
                     log(f"multi: mapping {r['n_map']}x{r['n_kf']}: {r['seconds']:.3f} s against "
                         f"the unsharded pass's {dt_plain:.3f} s on the card alone")
 
@@ -2263,13 +2362,13 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
     # (c) the command line on 4 ranks, map = 2 x kf = 2, with a resume; then
     # on 2 ranks on the shipped mesh (map 1, every rank on kf).
     with tempfile.TemporaryDirectory() as tmp:
-        def cli_ranks(config, overrides, world, extra, tag, segments):
+        def cli_ranks(config, overrides, world, extra, tag, segments, frames=cli_frames):
             import socket
 
             with socket.socket() as s:
                 s.bind(("localhost", 0))
                 port = s.getsockname()[1]
-            argv = [os.path.join(ROOT, "configs", config), "--frames", str(cli_frames),
+            argv = [os.path.join(ROOT, "configs", config), "--frames", str(frames),
                     "--ckpt-dir", os.path.join(tmp, "ck"),
                     "--log", os.path.join(tmp, f"{tag}.jsonl"),
                     "--trajectory", os.path.join(tmp, f"{tag}.npy"), *extra,
@@ -2305,7 +2404,7 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
             traj = np.load(os.path.join(tmp, f"{tag}.npy"))
             log(f"multi cli [{tag}]: {world} ranks in {dt:.1f} s (processes included); "
                 f"fps_avg {last['fps_avg']}; rank 0's last line {last}")
-            if not (last["frames"] == cli_frames and traj.shape == (cli_frames, 4, 4)
+            if not (last["frames"] == frames and traj.shape == (frames, 4, 4)
                     and np.isfinite(traj).all()):
                 raise AssertionError(f"multi cli [{tag}]: {last}, trajectory {traj.shape}")
             if not last["ate_rmse_cm"] < ATE_LOST_CM:
@@ -2338,6 +2437,13 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                   ["dataset=synthetic", "parallel.map=1", "parallel.kf=0",
                    "mapping.pixels=4096", f"mapping.iters_first={KF_CLI_ITERS_FIRST}"],
                   2, [], "kf-only", ["grads", "step"])
+        # Two ranks on map with the importance pass: one more segment.
+        cli_ranks("cofusion.yaml",
+                  ["dataset=synthetic", "sync_method=async", "tracking.method=adam",
+                   "mapping.iters_first=100", "mapping.color_refine=false", "parallel.map=2",
+                   "parallel.kf=1", f"rendering.N_importance={N_IMPORTANCE}"],
+                  2, [], "importance", ["gather", "grads", "halo", "importance", "sample",
+                                        "step"], frames=3)
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2624,6 +2730,100 @@ def phase_pretrain():
         f"{float(raw[:, 3].max()):.3f}]")
 
 
+# ---------------------------------------------------------------- phase 15
+# The importance samples a ray of phase 15 and phase 11's importance runs
+# (rendering.N_importance; no shipped config sets one).
+N_IMPORTANCE = 16
+
+
+def with_importance(cfg):
+    """``cfg`` at ``rendering.N_importance = N_IMPORTANCE``."""
+    return dataclasses.replace(cfg, rendering=dataclasses.replace(
+        cfg.rendering, N_importance=N_IMPORTANCE))
+
+
+@contextlib.contextmanager
+def syncs_in_programs(sites):
+    """Counts into ``sites``, by call site, every call that waits for the
+    stream while a pose solve's or a mapping pass's program runs (its
+    replays and the eager work between them: ``set_sync_debug_mode``), but
+    in a capture, which waits for the card by design."""
+    import warnings
+
+    from niceslam_tpu_torch.slam import programs as progs
+
+    def watched(fn, mode):
+        def call(*a, **kw):
+            before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+        return call
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING in str(message):
+            sites[sync_site(filename, lineno)] += 1
+
+    saved = (progs.TrackProgram.run, progs.MappingProgram.run, progs.Programs.capture_graph)
+    progs.TrackProgram.run = watched(saved[0], "warn")
+    progs.MappingProgram.run = watched(saved[1], "warn")
+    progs.Programs.capture_graph = watched(saved[2], 0)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            yield sites
+    finally:
+        progs.TrackProgram.run, progs.MappingProgram.run, progs.Programs.capture_graph = saved
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def phase_importance(cfg, base: dict):
+    """Phase 15: the main path at ``rendering.N_importance = N_IMPORTANCE``
+    on the card (the module docstring). ``base`` is phase 4's fused run of
+    the same frames without the importance pass."""
+    from collections import Counter
+
+    from niceslam_tpu_torch.slam.programs import pool_bytes
+
+    icfg = with_importance(cfg)
+    n = base["n_frames"]
+    sites = Counter()
+    run = phase_main_path(icfg, n, label=f" imp{N_IMPORTANCE}", watch=syncs_in_programs(sites))
+    launches, want = run["launches"], base["launches"]
+    log(f"importance: seconds per frame {frame_seconds(run['dts'])} (without the pass, "
+        f"phase 4: {frame_seconds(base['dts'])}); graph pool {pool_bytes() / 2**20:.1f} MiB; "
+        f"peak {run['peak_bytes'] / 2**20:.1f} MiB (phase 4 "
+        f"{base['peak_bytes'] / 2**20:.1f}); ATE {run['ate_cm']:.4f} cm; launches "
+        f"{launches} (phase 4 {want})")
+    log(f"importance: calls that waited for the stream inside a solve's or a pass's "
+        f"program: {sum(sites.values())} {dict(sites.most_common())}")
+    if sites:
+        raise AssertionError(f"importance: calls inside the programs waited for the stream: "
+                             f"{dict(sites)}")
+    # Each render evaluates two point sets and differentiates the second.
+    if (launches["trilerp_fwd"] != 2 * want["trilerp_fwd"]
+            or launches["trilerp_bwd"] != want["trilerp_bwd"]):
+        raise AssertionError(f"importance: K1 {launches['trilerp_fwd']} (want twice "
+                             f"{want['trilerp_fwd']}), K2 {launches['trilerp_bwd']} (want "
+                             f"{want['trilerp_bwd']})")
+    phase_panel(run["slam"], run["reader"])
+    del run["slam"]
+    frames, iters_first = CUT
+    ccfg = with_importance(cut_config(cfg, iters_first))
+    cut = {way: phase_main_path(ccfg, frames, capture=capture, label=f" imp{N_IMPORTANCE} cut")
+           for way, capture in (("graphed", None), ("eager", False))}
+    got = {way: digest(r["poses"], r["grids"]) for way, r in cut.items()}
+    log(f"importance cut ({frames} frames, iters_first {iters_first}): sha1 {got}; seconds "
+        f"per frame graphed {frame_seconds(cut['graphed']['dts'])}, eager "
+        f"{frame_seconds(cut['eager']['dts'])}")
+    if len(set(got.values())) != 1 or cut["graphed"]["launches"] != cut["eager"]["launches"]:
+        raise AssertionError(f"importance cut: graphed and eager differ: {got}, launches "
+                             f"{cut['graphed']['launches']} against {cut['eager']['launches']}")
+
+
 # ---------------------------------------------------------------- phase 14
 # The keys of the JAX bench's line (bench.py), the sweep's record with
 # depth_psnr (scripts/accuracy_sweep.py) and a kernel-bench record
@@ -2816,7 +3016,7 @@ def main():
     log(f"mesher phase: {time.perf_counter() - t0:.1f} s")
     log_pool("a panel (phase 5)")
     del runs["fused"]["slam"]  # the later runs' peak memory is their own
-    async_run = phase_async(cfg, runs["fused"])
+    phase_async(cfg, runs["fused"])
     log_pool("the async main path (phase 7)")
     runs["packed"] = phase_main_path(cfg, args.frames, route="packed")
     log_pool("the packed main path (phase 4)")
@@ -2846,13 +3046,17 @@ def main():
     log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
     log_pool("pretraining (phase 12)")
     t0 = time.perf_counter()
-    phase_graphs(cfg, runs, async_run, graphed_busy)
+    phase_graphs(cfg, graphed_busy)
     log(f"graphs phase: {time.perf_counter() - t0:.1f} s")
     log_pool("the eager runs (phase 13)")
     t0 = time.perf_counter()
     phase_entry_points()
     log(f"entry points phase: {time.perf_counter() - t0:.1f} s")
     log_pool("the measurement entry points (phase 14)")
+    t0 = time.perf_counter()
+    phase_importance(cfg, runs["fused"])
+    log(f"importance phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the importance pass (phase 15)")
     log(f"graph pool of the process where each phase ended (MiB): {json.dumps(POOL_READINGS)}")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]

@@ -274,12 +274,15 @@ class SplitSample:
     def forward_(self, block: torch.Tensor, halo: torch.Tensor, v: torch.Tensor,
                  out: torch.Tensor) -> None:
         """``out [N, C]`` = this rank's share of the sample at ``v``: the
-        local value on the points it owns, zeros elsewhere."""
+        local value on the points it owns, zeros elsewhere. ``v`` may be fewer
+        points than the sampler was made for (the first point set of the
+        importance pass, whose corner rows no backward reads)."""
         if self.local is not None:
             self.local[:self.zb].copy_(block)
             self.local[self.zb:].copy_(halo)
         v_loc, mine = local_coords(v, self.lo, self.zb, self.nz)
-        torch.mul(trilerp_keep(self.grid(block), v_loc, self.corner_rows), mine, out=out)
+        rows = None if self.corner_rows is None else self.corner_rows[:v.shape[0]]
+        torch.mul(trilerp_keep(self.grid(block), v_loc, rows), mine, out=out)
 
     def summed(self, block: torch.Tensor, halo: torch.Tensor, v: torch.Tensor,
                feat: torch.Tensor) -> torch.Tensor:

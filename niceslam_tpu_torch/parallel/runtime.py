@@ -21,13 +21,12 @@ one process per rank (the JAX package runs one controller per host), so
   sharded on this rank's Z blocks, as the system's mapping program (CUDA
   graphs on a card): with ``map = 1`` two graphs an iteration around the
   kf all_reduce, with ``map > 1`` the segments of
-  ``sharded_mapper.MapSegments`` around 3 collectives (4 with ``kf > 1``).
-  ``rendering.N_importance > 0`` with ``map > 1`` is refused here: that
-  program sums the features of one point set an iteration. The system
-  keeps the whole padded grids as its published map: with ``map > 1`` the
-  blocks are assembled on every rank after each pass by one slotted
-  all_reduce per level, and the tracker, ``render_image``, the mesher and
-  checkpoints read that copy. Every rank then solves the same pose from
+  ``sharded_mapper.MapSegments`` around 3 collectives (4 with ``kf > 1``),
+  and one more with ``rendering.N_importance > 0``: the importance pass's
+  first point set. The system keeps the whole padded grids as its
+  published map: with ``map > 1`` the blocks are assembled on every rank
+  after each pass by one slotted all_reduce per level, and the tracker,
+  ``render_image``, the mesher and checkpoints read that copy. Every rank then solves the same pose from
   the same draws, through the system's programs.
 
 Fault model: all or nothing, as in the JAX package. A rank that fails
@@ -108,12 +107,6 @@ class MapKfRuntime:
             raise ValueError(
                 f"mapping.pixels={slam.cfg.mapping.pixels} must divide the kf "
                 f"mesh axis ({self.mesh.n_kf})"
-            )
-        if self.mesh.n_map > 1 and slam.rcfg.n_importance > 0:
-            raise ValueError(
-                f"rendering.N_importance={slam.rcfg.n_importance} with parallel.map="
-                f"{self.mesh.n_map}: the map-sharded mapping program samples one point "
-                "set an iteration; set N_importance to 0 or parallel.map to 1"
             )
         slam.log.log(self.describe())
         slam._runtime = self

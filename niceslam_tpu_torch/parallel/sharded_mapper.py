@@ -33,12 +33,14 @@ holds a collective):
   (``slam/mapper.py``: ``mapping_grads``, ``mapping_step``);
 - with ``n_map > 1`` the halo sampler's collectives are hoisted out of it
   to a fixed set of points in the iteration, 3 all_reduces (4 with
-  ``n_kf > 1``) whatever the number of levels, with a graph between each
-  two (:class:`MapSegments`).
+  ``n_kf > 1``, one more with ``rendering.N_importance > 0``) whatever the
+  number of levels, with a graph between each two (:class:`MapSegments`).
 
 :func:`make_sharded_run_schedule` runs the pass eagerly with the
 collectives inside the sampler's forward and backward: the reference that
-the program is held to.
+the program is held to. With ``N_importance > 0`` its first point set's
+collectives run forward only: the loss sees that set through its detached
+weights, so nothing differentiates it.
 
 Grids must be Z-padded so that each level divides ``n_map``:
 :func:`pad_grid_for_sharding` replicates the last row and extends the z
@@ -57,7 +59,7 @@ from ..core.sampling import points_along_rays
 from ..grid.shard import NextFirstRow, SlotRows, SplitSample, sample_grid_sharded
 from ..models.decoders import STAGE_LEVELS
 from ..ops.trilinear import get_sampler_route, override_sampler, voxel_coords
-from ..render.renderer import ray_samples
+from ..render.renderer import evaluate_z_vals, importance_z_vals, ray_samples
 from ..slam.mapper import (
     STAGE_ORDER,
     KfSlice,
@@ -198,25 +200,46 @@ class MapSegments:
     sampler's collectives (``grid/shard.py``) are hoisted out of it: the
     halo rows depend only on the grid at the start of the iteration, the
     features only on the points, which come from the draw and the cameras
-    (``mapping.N_importance`` is 0, so one point set), and the returning
-    gradients only on the local backward. Each segment reads its inputs
-    from static buffers, so one graph of it serves every row of its stage.
+    (with ``rendering.N_importance > 0`` the second point set also from the
+    first one's summed features), and the returning gradients only on the
+    local backward. Each segment reads its inputs from static buffers, so
+    one graph of it serves every row of its stage.
     For stage ``s`` (sampled levels ``STAGE_LEVELS[s]``, halo levels those
     and the TV levels):
 
     - **G0** (``halo``): every halo level's block row 0 into its own slot
       of one slotted buffer (:class:`~..grid.shard.SlotRows`);
     - **C0**: one all_reduce of it over the map group: the halo rows;
-    - **G1** (``sample``): the row's draw, rays, sample depths (kept),
-      points and voxel coordinates; each sampled level's owner-masked local
-      sample (:meth:`~..grid.shard.SplitSample.forward_`, K1 or K3 + K4)
-      into one flat feature buffer, and each TV level's local sum with its
-      border term (:func:`tv_level`) after them;
-    - **C1**: one all_reduce of that buffer over the map group;
-    - **G2** (``grads``): ``mapping_loss`` on the summed features
-      (:meth:`~..grid.shard.SplitSample.summed`), the TV term from the
-      summed values, ``autograd.grad`` of the loss for the pass's leaves,
-      the halo rows and the points; the leaves' gradients into the program's
+    - **G1** (``sample``): the row's draw, rays, sample depths (kept in
+      ``z``), points and voxel coordinates; each sampled level's
+      owner-masked local sample (:meth:`~..grid.shard.SplitSample.forward_`,
+      K1 or K3 + K4) into one flat feature buffer, and each TV level's
+      local sum with its border term (:func:`tv_level`) after them;
+    - **C1**: one all_reduce of that buffer over the map group.
+
+    With ``rendering.N_importance > 0``, G1 writes the first point set's
+    depths (``z_first``) and its samples into a region of their own, C1
+    sums that region, and one segment and one collective follow:
+
+    - **G1b** (``importance``): the first point set decoded from its summed
+      features (``nice_forward`` of the stage) and composited, then
+      ``render_rays``' importance samples of its detached weights
+      (deterministic, as ``mapping_loss`` draws them) merged into ``z``,
+      the static buffer that G2 and G3 read; then the local samples of the
+      merged point set and the TV sums, into the regions that G1 fills
+      without the pass;
+    - **C1b**: one all_reduce of those regions.
+
+    Every rank of a map group computes ``z`` from the same summed features
+    by the same ops, so the ranks place the samples alike, bit for bit.
+    Then, with the pass or without:
+
+    - **G2** (``grads``): ``mapping_loss`` at the depths in ``z`` on the
+      summed features (:meth:`~..grid.shard.SplitSample.summed`; one point
+      set: ``render_rays`` takes ``z`` as its last evaluation's depths and
+      evaluates nothing else), the TV term from the summed values,
+      ``autograd.grad`` of the loss for the pass's leaves, the halo rows
+      and the points; the leaves' gradients into the program's
       flat buffer (``slam/mapper.pack_grads_``), the halo rows' gradients
       into the slot of their owner in one backward buffer (zeros from the
       last block, whose wrap-around halo is read by nobody), and under BA
@@ -230,13 +253,15 @@ class MapSegments:
     - **G4** (``step``): ``mapping_step`` on the flat buffer's views.
 
     G3 and G4 are one segment when ``n_kf = 1``. So an iteration makes 3
-    collectives (4 with ``n_kf > 1``), whatever the number of levels: the
-    eager pass (:func:`make_sharded_run_schedule`) makes up to four per
-    sampled level (halo rows and features forward, point gradients and
-    halo gradient back) and three per TV level. No tape crosses a segment: G2 evaluates
-    the cheap parts of the forward again (rays, points, voxel coordinates)
-    from the same buffers, bit for bit the values G1 used, and G3 the rays
-    and points for the cameras' gradient.
+    collectives (4 with ``n_kf > 1``, one more with the importance pass),
+    whatever the number of levels: the eager pass
+    (:func:`make_sharded_run_schedule`) makes up to four per sampled level
+    (halo rows and features forward, point gradients and halo gradient
+    back), two more per level for the importance pass's first point set,
+    and three per TV level. No tape crosses a segment: G2 evaluates the
+    cheap parts of the forward again (rays, points, voxel coordinates) from
+    the same buffers, bit for bit the values G1 or G1b used, and G3 the
+    rays and points for the cameras' gradient.
 
     The result equals the eager pass up to the order of float sums: the
     cameras' gradient adds the decoders' direct term and the samplers'
@@ -248,14 +273,14 @@ class MapSegments:
     def __init__(self, mesh: MapKfMesh, prog):
         self.mesh, self.prog = mesh, prog
         rcfg, pcfg = prog.rcfg, prog.pcfg
-        if rcfg.n_importance > 0:
-            raise ValueError(
-                "rendering.N_importance > 0 with parallel.map > 1: the map-sharded "
-                "mapping program sums the features of one point set an iteration")
         blocks = prog.pp.params["grids"]
         dev = prog.flat.device
         n_rays = prog.kf.ray_shard[1]
-        n_pts = n_rays * (rcfg.n_samples + rcfg.n_surface)
+        n_first = rcfg.n_samples + rcfg.n_surface
+        self.importance = rcfg.n_importance > 0
+        # The loss's point set: the first one, or the merged one after the
+        # importance pass.
+        n_pts = n_rays * (n_first + rcfg.n_importance)
         self.level_of = {id(b): lvl for lvl, b in blocks.items()}
         self.tv = tuple(lvl for lvl in TV_LEVELS if lvl in blocks) if pcfg.tv_weight > 0 else ()
         self.need_pts = pcfg.ba
@@ -275,14 +300,17 @@ class MapSegments:
                  for st in STAGE_ORDER}
         n_fwd = {st: sum(n_pts * blocks[lvl].shape[-1] for lvl in self.sampled[st])
                  for st in STAGE_ORDER}
+        n_one = {st: sum(n_rays * n_first * blocks[lvl].shape[-1] for lvl in self.sampled[st])
+                 if self.importance else 0 for st in STAGE_ORDER}
         n_d = 3 * n_pts if self.need_pts else 0
         zeros = lambda n: torch.zeros((n,), device=dev)  # noqa: E731
         self.halo_buf = zeros(mesh.n_map * max(width.values()))
-        self.fwd_buf = zeros(max(n_fwd.values()) + len(self.tv))
+        self.fwd_buf = zeros(max(n_fwd[st] + n_one[st] for st in STAGE_ORDER) + len(self.tv))
         self.bwd_buf = zeros(mesh.n_map * max(width.values()) + n_d)
-        self.z = torch.zeros((n_rays, rcfg.n_samples + rcfg.n_surface), device=dev)
+        self.z = torch.zeros((n_rays, n_first + rcfg.n_importance), device=dev)
+        self.z_first = torch.zeros((n_rays, n_first), device=dev) if self.importance else None
         self.halo, self.grad_rows, self.feats, self.tv_vals, self.d_pts = {}, {}, {}, {}, {}
-        self.fwd_used, self.bwd_used = {}, {}
+        self.first, self.fwd_used, self.first_used, self.bwd_used = {}, {}, {}, {}
         for st in STAGE_ORDER:
             self.halo[st] = SlotRows(self.halo_buf, row_shapes, self.halo_levels[st], mesh.n_map)
             self.grad_rows[st] = SlotRows(self.bwd_buf, row_shapes, self.halo_levels[st],
@@ -293,7 +321,13 @@ class MapSegments:
                 self.feats[st][lvl] = self.fwd_buf[off:off + n_pts * C].view(n_pts, C)
                 off += n_pts * C
             self.tv_vals[st] = self.fwd_buf[off:off + len(self.tv)]
-            self.fwd_used[st] = off + len(self.tv)
+            off = self.fwd_used[st] = off + len(self.tv)
+            self.first[st] = {}
+            for lvl in self.sampled[st] if self.importance else ():
+                C = blocks[lvl].shape[-1]
+                self.first[st][lvl] = self.fwd_buf[off:off + n_rays * n_first * C].view(-1, C)
+                off += n_rays * n_first * C
+            self.first_used[st] = off
             k = mesh.n_map * width[st]
             self.d_pts[st] = self.bwd_buf[k:k + n_d].view(-1, 3)
             self.bwd_used[st] = k + n_d
@@ -303,6 +337,7 @@ class MapSegments:
     def buffers(self) -> List[torch.Tensor]:
         """The static buffers that the segments write."""
         return [self.halo_buf, self.fwd_buf, self.bwd_buf, self.z,
+                *([self.z_first] if self.importance else []),
                 *(t for s in self.samplers.values() for t in s.buffers())]
 
     @property
@@ -319,9 +354,13 @@ class MapSegments:
             Segment(f"{name} halo", partial(self.pack_halo, stage)),
             Segment(f"{name} sample", partial(self.sample, stage),
                     before=over_map(self.halo[stage].buf)),
-            Segment(f"{name} grads", partial(self.grads, stage, zero),
-                    before=over_map(self.fwd_buf[:self.fwd_used[stage]])),
         ]
+        if self.importance:
+            used = self.fwd_used[stage]
+            segs.append(Segment(f"{name} importance", partial(self.resample, stage),
+                                before=over_map(self.fwd_buf[used:self.first_used[stage]])))
+        segs.append(Segment(f"{name} grads", partial(self.grads, stage, zero),
+                            before=over_map(self.fwd_buf[:self.fwd_used[stage]])))
         after_c2 = over_map(self.bwd_buf[:self.bwd_used[stage]])
         if prog.kf.reduce is None:
             return segs + [Segment(f"{name} gather+step", partial(self.gather_step, stage, zero),
@@ -350,23 +389,59 @@ class MapSegments:
         self.halo[stage].pack_({lvl: blocks[lvl][:1] for lvl in self.halo_levels[stage]},
                                self.mesh.map_i)
 
+    def _sample_local(self, stage: str, rays_o, rays_d, z, feats) -> None:
+        """Each sampled level's owner-masked local sample of the points at
+        depths ``z`` into ``feats``."""
+        blocks, bounds = self.prog.pp.params["grids"], self.prog.inp.bounds
+        pts = points_along_rays(rays_o, rays_d, z).reshape(-1, 3)
+        halo = self.halo[stage]
+        for lvl, feat in feats.items():
+            s, b = self.samplers[lvl], blocks[lvl]
+            v = voxel_coords(pts, bounds[lvl], (s.nz,) + tuple(b.shape[1:3]))
+            s.forward_(b, halo.row(lvl, self._next), v, feat)
+
+    def _tv_local(self, stage: str) -> None:
+        """Each TV level's local sum with its border term."""
+        blocks, halo = self.prog.pp.params["grids"], self.halo[stage]
+        for k, lvl in enumerate(self.tv):
+            self.tv_vals[stage][k].copy_(tv_level(blocks[lvl], halo.row(lvl, self._next),
+                                                  self.mesh))
+
     @torch.no_grad()
     def sample(self, stage: str) -> None:
         """G1."""
         prog = self.prog
-        blocks, bounds = prog.pp.params["grids"], prog.inp.bounds
         rays_o, rays_d, gt_depth, _, _ = self._rays()
         z = ray_samples(rays_o, rays_d, prog.inp.scene_bound, gt_depth, prog.rcfg)
+        if self.importance:
+            self.z_first.copy_(z)
+            self._sample_local(stage, rays_o, rays_d, z, self.first[stage])
+            return
         self.z.copy_(z)
-        pts = points_along_rays(rays_o, rays_d, z).reshape(-1, 3)
-        halo = self.halo[stage]
-        for lvl, feat in self.feats[stage].items():
-            s, b = self.samplers[lvl], blocks[lvl]
-            v = voxel_coords(pts, bounds[lvl], (s.nz,) + tuple(b.shape[1:3]))
-            s.forward_(b, halo.row(lvl, self._next), v, feat)
-        for k, lvl in enumerate(self.tv):
-            self.tv_vals[stage][k].copy_(tv_level(blocks[lvl], halo.row(lvl, self._next),
-                                                  self.mesh))
+        self._sample_local(stage, rays_o, rays_d, z, self.feats[stage])
+        self._tv_local(stage)
+
+    def _sample_first(self, stage, grid, pts, bound):
+        """The sampler of G1b's first evaluation (``override_sampler``): the
+        summed features of the first point set."""
+        return self.first[stage][self.level_of[id(grid)]]
+
+    @torch.no_grad()
+    def resample(self, stage: str) -> None:
+        """G1b: the first point set decoded from its summed features and
+        composited, the merged depths of the importance pass into ``z``
+        (``render_rays``' ops, deterministic), then the local samples of the
+        merged point set and the TV sums, as G1 writes them without the
+        pass."""
+        prog = self.prog
+        rays_o, rays_d, _, _, _ = self._rays()
+        with override_sampler(partial(self._sample_first, stage)):
+            out = evaluate_z_vals(prog.pp.params["decoders"], prog.pp.params["grids"],
+                                  prog.inp.bounds, prog.inp.scene_bound, rays_o, rays_d,
+                                  self.z_first, stage, prog.rcfg)
+        self.z.copy_(importance_z_vals(self.z_first, out.weights, prog.rcfg))
+        self._sample_local(stage, rays_o, rays_d, self.z, self.feats[stage])
+        self._tv_local(stage)
 
     def _sample_summed(self, grid, pts, bound):
         """The sampler of G2's ``mapping_loss`` (``override_sampler``)."""
@@ -377,8 +452,7 @@ class MapSegments:
         if not first:
             first.extend([pts, pts.detach().requires_grad_(self.need_pts)])
         elif pts is not first[0]:
-            raise RuntimeError("a second point set in one iteration: the map-sharded "
-                               "mapping program sums the features of one")
+            raise RuntimeError("G2 evaluates one point set, at the depths in the z buffer")
         s = self.samplers[lvl]
         v = voxel_coords(first[1], bound, (s.nz,) + tuple(grid.shape[1:3]))
         return s.summed(grid, halos[lvl], v, self.feats[stage][lvl])
@@ -398,7 +472,7 @@ class MapSegments:
                     pp.params, inp.bounds, inp.scene_bound, prog.intr, inp.colors, inp.depths,
                     inp.frame_valid, inp.cam_fixed, fidx, i, j, stage, pcfg.w_color_loss,
                     prog.rcfg, tv_weight=0.0, fs_weight=pcfg.fs_weight, fs_band=pcfg.fs_band,
-                    ray_shard=prog.kf.ray_shard)
+                    ray_shard=prog.kf.ray_shard, z_vals=self.z)
         finally:
             self._live = None
         if self.tv:

@@ -59,6 +59,55 @@ def ray_samples(
     return z_vals
 
 
+def evaluate_z_vals(
+    params,
+    grids: Dict[str, torch.Tensor],
+    bounds: Dict[str, torch.Tensor],
+    scene_bound: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z_vals: torch.Tensor,
+    stage: str,
+    cfg: RenderConfig = RenderConfig(),
+) -> compositing.RenderOutputs:
+    """One evaluation of :func:`render_rays`: decode the points at depths
+    ``z_vals [N, S]`` on the live rays and composite them; ``occ`` is the
+    logit before the out-of-bound override, ``sample_valid`` the in-bound
+    mask."""
+    pts = sampling.points_along_rays(rays_o, rays_d, z_vals)  # [N, S, 3]
+    n_rays, S = pts.shape[0], pts.shape[1]
+    flat = pts.reshape(-1, 3)
+    raw = nice_forward(params, grids, flat, bounds, stage)  # [N*S, 4]
+    inside = torch.all(
+        (flat > scene_bound[:, 0]) & (flat < scene_bound[:, 1]), dim=-1
+    )
+    occ = torch.where(inside, raw[:, 3], torch.full_like(raw[:, 3], 100.0))
+    full = torch.cat([raw[:, :3], occ[:, None]], dim=-1).reshape(n_rays, S, 4)
+    out = compositing.raw_to_outputs(full, z_vals, rays_d, occupancy=cfg.occupancy)
+    return out._replace(
+        occ=raw[:, 3].reshape(n_rays, S),
+        z_vals=z_vals,
+        sample_valid=inside.reshape(n_rays, S),
+    )
+
+
+def importance_z_vals(
+    z_vals: torch.Tensor,
+    weights: torch.Tensor,
+    cfg: RenderConfig,
+    gen: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The depths of :func:`render_rays`' second evaluation: ``z_vals`` and
+    ``cfg.n_importance`` samples of the first evaluation's detached
+    ``weights`` (deterministic without ``gen``), sort-merged and detached."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    z_imp = sampling.sample_pdf(
+        mids, weights[..., 1:-1].detach(), cfg.n_importance, gen,
+        deterministic=gen is None,
+    )
+    return sampling.merge_z_vals(z_vals, z_imp.detach())
+
+
 def render_rays(
     params,
     grids: Dict[str, torch.Tensor],
@@ -70,41 +119,26 @@ def render_rays(
     stage: str,
     cfg: RenderConfig = RenderConfig(),
     gen: Optional[torch.Generator] = None,
+    z_vals: Optional[torch.Tensor] = None,
 ) -> compositing.RenderOutputs:
     """Render a ray batch ``[N, 3]`` at the given stage.
 
     ``gt_depth=None`` renders without depth guidance (no surface samples).
-    ``gen`` feeds the stratified jitter when ``cfg.perturb > 0``.
+    ``gen`` feeds the stratified jitter when ``cfg.perturb > 0``, and the
+    importance draws. With ``cfg.n_importance > 0`` the first evaluation's
+    weights place the depths of a second one (:func:`importance_z_vals`),
+    whose outputs are returned. ``z_vals`` given are the depths of the last
+    evaluation, placed by the caller (the map-sharded mapping program,
+    ``parallel/sharded_mapper.py``): then only that one runs.
     """
-    z_vals = ray_samples(rays_o, rays_d, scene_bound, gt_depth, cfg, gen)
-
-    def eval_composite(z_vals):
-        pts = sampling.points_along_rays(rays_o, rays_d, z_vals)  # [N, S, 3]
-        n_rays, S = pts.shape[0], pts.shape[1]
-        flat = pts.reshape(-1, 3)
-        raw = nice_forward(params, grids, flat, bounds, stage)  # [N*S, 4]
-        inside = torch.all(
-            (flat > scene_bound[:, 0]) & (flat < scene_bound[:, 1]), dim=-1
-        )
-        occ = torch.where(inside, raw[:, 3], torch.full_like(raw[:, 3], 100.0))
-        full = torch.cat([raw[:, :3], occ[:, None]], dim=-1).reshape(n_rays, S, 4)
-        out = compositing.raw_to_outputs(full, z_vals, rays_d, occupancy=cfg.occupancy)
-        return out._replace(
-            occ=raw[:, 3].reshape(n_rays, S),
-            z_vals=z_vals,
-            sample_valid=inside.reshape(n_rays, S),
-        )
-
-    out = eval_composite(z_vals)
-    if cfg.n_importance > 0:
-        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_imp = sampling.sample_pdf(
-            mids, out.weights[..., 1:-1].detach(), cfg.n_importance, gen,
-            deterministic=gen is None,
-        )
-        z_all = sampling.merge_z_vals(z_vals, z_imp.detach())
-        out = eval_composite(z_all)
-    return out
+    if z_vals is None:
+        z_vals = ray_samples(rays_o, rays_d, scene_bound, gt_depth, cfg, gen)
+        if cfg.n_importance > 0:
+            first = evaluate_z_vals(params, grids, bounds, scene_bound, rays_o, rays_d,
+                                    z_vals, stage, cfg)
+            z_vals = importance_z_vals(z_vals, first.weights, cfg, gen)
+    return evaluate_z_vals(params, grids, bounds, scene_bound, rays_o, rays_d, z_vals,
+                           stage, cfg)
 
 
 def render_image(

@@ -273,6 +273,7 @@ def mapping_loss(
     fs_weight: float = 0.0,
     fs_band: float = 0.05,
     ray_shard: Optional[Tuple[int, int]] = None,
+    z_vals: Optional[torch.Tensor] = None,
 ):
     """One joint-iteration loss over the keyframe window: per-ray depth L1
     over gt > 0 pixels, the free-space occupancy term, the color L1 in the
@@ -284,13 +285,16 @@ def mapping_loss(
     of the draw ``(fidx, i, j)``: every rank of the sharded mapping program
     (``parallel/sharded_mapper.py``) passes the whole draw and its slice, so
     the slices over the ``kf`` axis are the unsharded ray set, and their
-    losses (sums over rays) add up to the unsharded loss."""
+    losses (sums over rays) add up to the unsharded loss. ``z_vals`` given
+    are the sample depths of the slice's rays (``render_rays``' last
+    evaluation), placed by that program's importance pass."""
     grids, decoders = all_params["grids"], all_params["decoders"]
     rays_o, rays_d, gt_depth, gt_color, ray_w = mapping_rays(
         all_params["cams"], intr, colors, depths, frame_valid, cam_fixed, fidx, i, j,
         ray_shard)
     out = render_rays(
-        decoders, grids, bounds, scene_bound, rays_o, rays_d, gt_depth, stage, rcfg
+        decoders, grids, bounds, scene_bound, rays_o, rays_d, gt_depth, stage, rcfg,
+        z_vals=z_vals,
     )
     depth_mask = (gt_depth > 0).to(torch.float32) * ray_w
     loss = torch.sum(torch.abs(gt_depth - out.depth) * depth_mask)

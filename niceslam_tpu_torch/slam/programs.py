@@ -26,8 +26,9 @@ site it replaces:
   (:func:`~.mapper.mapping_grads`, :func:`~.mapper.mapping_step`) around
   the all_reduce of the flat gradient buffer, with more than one the
   segments of ``parallel/sharded_mapper.MapSegments`` (halo rows, local
-  samples, loss and gradients, returned gradients, step) around 3
-  all_reduces (4 with more than one kf rank);
+  samples, with ``rendering.N_importance > 0`` the importance pass, loss
+  and gradients, returned gradients, step) around 3 all_reduces (4 with
+  more than one kf rank, one more with the importance pass);
 - keyframe selection (``slam/keyframes.py:42``) and the frustum masks
   (``slam/keyframes.py:87``, one program per window size and map):
   :meth:`Programs.overlap_percentages`, :meth:`Programs.frustum_masks`;
@@ -433,7 +434,8 @@ class MappingProgram:
       (:func:`~.mapper.mapping_step`);
     - with more than one map block, the segments of the slice's
       ``segments(program)`` (``parallel/sharded_mapper.MapSegments``): 4
-      or 5 graphs around 3 or 4 collectives.
+      or 5 graphs around 3 or 4 collectives, and one more of each with
+      ``rendering.N_importance > 0``.
 
     Which gradients a stage has (the flat layout) is known from the first
     call of the segment that computes them. ``capture`` off runs the same

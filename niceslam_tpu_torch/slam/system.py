@@ -48,7 +48,8 @@ signature before frame 0. Under a multi-rank runtime a pass's iteration
 is a few graphs around eager collectives, which no graph holds: two around
 the kf all_reduce with one map block, and with ``map > 1`` the segments of
 ``parallel/sharded_mapper.MapSegments`` around 3 collectives (4 with
-``kf > 1``) on this rank's Z blocks.
+``kf > 1``, one more with ``rendering.N_importance > 0``) on this rank's Z
+blocks.
 
 Randomness: grid/decoder init draws from a CPU ``torch.Generator`` seeded
 with ``seed``; tracker, mapper and overlap pixel draws from a generator on

@@ -11,6 +11,7 @@ JAX. The tests compute the JAX side in the parent and hand it over as numpy.
 """
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import time
@@ -87,10 +88,65 @@ def _np(t):
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _stack(ts):
+    return torch.stack(ts) if ts else torch.zeros((0,))
+
+
 def _t(tree):
     from niceslam_tpu_torch.convert import to_torch
 
     return to_torch(tree, "cpu")
+
+
+class Drawn(list):
+    """The importance samples a run drew, one array a call, and in
+    ``edges`` each call's last two bin edges (``[N, 2]``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.edges = []
+
+
+@contextlib.contextmanager
+def forced_importance(table, start: int = 0):
+    """The port's importance draws placed by ``table``: the ``k``-th call of
+    ``core.sampling.sample_pdf`` (``render_rays``' importance pass, once a
+    mapping iteration) returns rows ``[start, start + N)`` of ``table[k]``
+    instead of its own samples, which it yields (a :class:`Drawn`). The
+    importance pass is not continuous in the weights
+    (``tests/test_torch_importance.py``): two programs that round apart
+    place some rows' samples a bin apart, and Adam turns the tiny gradients
+    at a moved sample into full steps on grid cells that nothing else
+    reaches. So runs that are compared after a few iterations take one
+    placement, and the tests compare their own."""
+    from niceslam_tpu_torch.core import sampling
+
+    orig = sampling.sample_pdf
+    own = Drawn()
+
+    def forced(bins, weights, n_samples, gen=None, deterministic=True):
+        z = orig(bins, weights, n_samples, gen, deterministic)
+        own.append(z.detach().clone())
+        own.edges.append(bins[..., -2:].detach().clone())
+        return torch.tensor(np.asarray(table[len(own) - 1])[start:start + z.shape[0]],
+                            dtype=z.dtype, device=z.device)
+
+    sampling.sample_pdf = forced
+    try:
+        yield own
+    finally:
+        sampling.sample_pdf = orig
+
+
+def _forcing(p, n_kf):
+    """:func:`forced_importance` on this rank's ray slice of ``p["forced"]``,
+    or nothing without a table."""
+    import torch.distributed as dist
+
+    if p.get("forced") is None:
+        return contextlib.nullcontext(Drawn())
+    kf_i = dist.get_rank() % n_kf
+    return forced_importance(p["forced"], kf_i * p["pcfg"].n_pixels // n_kf)
 
 
 def halo_job(n_map, n_kf, p):
@@ -114,8 +170,11 @@ def halo_job(n_map, n_kf, p):
 
 def mapping_job(n_map, n_kf, p):
     """One sharded ``run_schedule`` on grids padded for ``n_map`` with the
-    injected draws ``p["pixels"]``: losses, the assembled grids, the decoder
-    leaves and the cameras."""
+    injected draws ``p["pixels"]`` (and with ``p["forced"]`` the importance
+    samples of :func:`forced_importance`): losses, the assembled grids, the
+    decoder leaves, the cameras and its own importance samples
+    (``[iterations, rays, N_importance]``, empty without a table) with
+    their last two bin edges (``edges``)."""
     from niceslam_tpu_torch.models.decoders import tree_leaves
     from niceslam_tpu_torch.parallel.mesh import make_mesh
     from niceslam_tpu_torch.parallel.runtime import MapKfRuntime
@@ -126,12 +185,14 @@ def mapping_job(n_map, n_kf, p):
     pp = make_pass_params(rt.split(grids), _t(p["decoders"]), _t(p["cams"]), p["pcfg"])
     opt = init_opt_state(pp)
     pixels = {it: tuple(torch.from_numpy(a).long() for a in d) for it, d in p["pixels"].items()}
-    losses = rt.run_schedule(
-        pp, opt, p["sched"], rt.split(masks), _t(p["bounds"]), _t(p["scene_bound"]),
-        p["intr"], _t(p["colors"]), _t(p["depths"]), p["valid"], p["fixed"],
-        p["pcfg"], p["rcfg"], pixels=pixels,
-    )
-    out = {"loss": losses, "cams": pp.params["cams"]}
+    with _forcing(p, n_kf) as own:
+        losses = rt.run_schedule(
+            pp, opt, p["sched"], rt.split(masks), _t(p["bounds"]), _t(p["scene_bound"]),
+            p["intr"], _t(p["colors"]), _t(p["depths"]), p["valid"], p["fixed"],
+            p["pcfg"], p["rcfg"], pixels=pixels,
+        )
+    out = {"loss": losses, "cams": pp.params["cams"], "own": _stack(own),
+           "edges": _stack(own.edges)}
     out.update({f"grid/{k}": v for k, v in rt.assemble(pp.params["grids"]).items()})
     out.update({f"dec/{n}": t for n, t in enumerate(tree_leaves(pp.params["decoders"]))})
     return out
@@ -194,7 +255,8 @@ def map_program_job(n_map, n_kf, p):
     ``p["route"]``: each one's losses, assembled grids, decoder leaves and
     cameras (``program/...``, ``eager/...``), each one's collectives per
     row, and the collectives of the program's segment plan of every stage
-    of the pass."""
+    of the pass. With ``p["forced"]`` both place their importance samples
+    by :func:`forced_importance` and report their own."""
     from niceslam_tpu_torch.models.decoders import tree_leaves
     from niceslam_tpu_torch.ops.trilinear import sampler_route
     from niceslam_tpu_torch.parallel.mesh import CALLS, make_mesh
@@ -214,15 +276,19 @@ def map_program_job(n_map, n_kf, p):
     with sampler_route(p["route"]):
         pp = mapper.make_pass_params(blocks, dec, cams, pcfg)
         c0 = CALLS["all_reduce"]
-        losses = rt.run_schedule(pp, mapper.init_opt_state(pp), sched, mblocks, bounds, sb,
-                                 p["intr"], colors, depths, p["valid"], p["fixed"], pcfg,
-                                 p["rcfg"], pixels=dict(enumerate(draws)))
+        with _forcing(p, n_kf) as own:
+            losses = rt.run_schedule(pp, mapper.init_opt_state(pp), sched, mblocks, bounds, sb,
+                                     p["intr"], colors, depths, p["valid"], p["fixed"], pcfg,
+                                     p["rcfg"], pixels=dict(enumerate(draws)))
+        out["own/eager"], out["edges/eager"] = _stack(own), _stack(own.edges)
         c1 = CALLS["all_reduce"]
         prog = Programs(capture=False).map_program(
             (cams.shape[0], False, True), "cpu", pcfg, p["intr"], p["rcfg"], blocks, dec, cams,
             rows, kf=rt.kf_slice(pcfg.n_pixels))
-        got = prog.run(blocks, dec, cams, mblocks, bounds, sb, colors, depths, p["valid"],
-                       p["fixed"], sched, mapper.stack_draws(draws, "cpu"))
+        with _forcing(p, n_kf) as own:
+            got = prog.run(blocks, dec, cams, mblocks, bounds, sb, colors, depths, p["valid"],
+                           p["fixed"], sched, mapper.stack_draws(draws, "cpu"))
+        out["own/program"], out["edges/program"] = _stack(own), _stack(own.edges)
         c2 = CALLS["all_reduce"]
         lrs = mapper.schedule_lrs(sched)
         plans = {sum(seg.before is not None for seg in prog.plan(stage, zero))
@@ -284,7 +350,8 @@ def slam_job(n_map, n_kf, p):
     eager runtime path (``eager/<sync>/...``) and, for the first sync
     method, through its programs after ``precompile()`` (``precompiled/...``,
     with whether ``precompile`` moved the generator, the collectives it
-    issued and the programs it made)."""
+    issued and the programs it made). ``p["eager"]`` false runs the
+    programs only."""
     import dataclasses
 
     from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
@@ -296,9 +363,11 @@ def slam_job(n_map, n_kf, p):
     out = {}
     for k, sync in enumerate(p["syncs"]):
         cfg = dataclasses.replace(p["cfg"], sync_method=sync)
-        runs = [("programs", NiceSLAM), ("eager", _eager_runtime_slam())]
-        if k == 0:
-            runs.append(("precompiled", NiceSLAM))
+        runs = [("programs", NiceSLAM)]
+        if p.get("eager", True):
+            runs.append(("eager", _eager_runtime_slam()))
+            if k == 0:
+                runs.append(("precompiled", NiceSLAM))
         for kind, cls in runs:
             slam = cls(cfg, reader=SyntheticBoxReader(cfg, n_frames=p["frames"]), seed=p["seed"],
                        device="cpu")
