@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``niceslam_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--frames 8] [--iters-first 1500] [--profile] [--seeds 1]
-                          [--multi-only | --pretrain-recipe]
+                          [--multi-only | --pretrain-recipe | --reference-run]
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
@@ -134,9 +134,10 @@ prints no result):
    1, 3, 4), the captures, the graph pool and peak memory of each rank. On
    the 2 ranks, ``NiceSLAM`` attached to a (1, 2) and then a (2, 1) mesh
    at the bench configuration, ``precompile`` and the main path's frames
-   graphed, then with ``capture=False``: every run's digest equal, no
-   collective in ``precompile``, seconds per frame both ways, the ATE
-   under ``ATE_LOST_CM``, each rank's graph pool and peak memory. With
+   graphed (the digest printed), then the cut (``CUT``) graphed and with
+   ``capture=False``: the cut's digests equal, every run's ranks agree, no
+   collective in ``precompile``, seconds per frame, the ATE under
+   ``ATE_LOST_CM``, each rank's graph pool and peak memory. With
    ``rendering.N_importance = N_IMPORTANCE`` (phase 15): the 12-iteration
    pass at (2, 1) and (2, 2) on both routes, as the eager pass (held
    against the unsharded pass on the same route in its first row: loss
@@ -213,8 +214,18 @@ prints no result):
    pool and peak memory; one 640x480 panel graphed against eager, bit for
    bit; then the cut of phase 13 (``CUT``) graphed and with
    ``capture=False``: one digest, the same launches.
+16. the cut reference envelope: ``ENVELOPE_FRAMES`` frames of the
+   Co-Fusion layout at 640x480 (``niceslam_tpu_torch.make_fixture_dataset``,
+   the long run's motion per frame) through the command line with the
+   reference run's overrides (``LONGRUN_SETS``: async, the bench's budgets,
+   ``lock_after``) cut by ``ENVELOPE_SETS``: a keyframe ring of 4 slots that
+   reuses a slot, voxels locked after 2 events (each event must leave the
+   grid values of the voxels locked when it starts equal bit for bit), a
+   checkpoint at frame 6 and a resume from it to the end (its first 7
+   poses equal to the run's), the colour refine's 5 passes on the last
+   frame, no lost track in either run.
 
-Phases 4, 7, 8, 9, 10, 11 (b), 12 and 15 run graphed, as ``NiceSLAM``,
+Phases 4, 7, 8, 9, 10, 11 (b), 12, 15 and 16 run graphed, as ``NiceSLAM``,
 ``render_image``, the mesher and ``pretrain_decoders`` do on a card; so
 do phase 11's command lines, its systems and its programs, every pass
 there a few graphs around eager all_reduces; the halo sampler and the
@@ -235,7 +246,18 @@ defaults, graphed (the full recipe: 24 scenes of 400 steps at batch 4096, writte
 ``output/pretrained_decoders_torch.npz``), then phase 4 (fused) with the
 decoders just written and with the shipped ones, and prints one JSON line:
 the recipe's wall seconds, steps per second and the ATE of both runs (a
-lost track is reported there, not raised).
+lost track is reported there, not raised). ``--reference-run`` runs phase
+1, then the reference-scale run of ``LONGRUN_r05.json`` (the 849-frame
+Co-Fusion layout written by ``make_fixture_dataset``, the command line on
+``configs/cofusion_synth849.yaml`` with ``LONGRUN_SETS``, then a resume
+from its frame-500 checkpoint to frame 530): the fixture's write seconds,
+``fps_avg``, the ATE over the first orbit and the whole run, the mapping
+events and rollbacks, the frame at which the ring first reused a slot, the
+voxels locked at the end, the graph pool and peak memory at frames 100,
+400, 800 and the last, and the resume's ATE; it fails on a non-zero exit, a
+non-finite pose or a lost track on the first orbit (after printing every
+figure), and ends with the ``nvidia-smi`` line and the usual last line
+(~5 min).
 
 It then prints the kernels' JSON line, the card's ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``. It needs one CUDA device and the
@@ -1441,20 +1463,10 @@ def phase_profile(slam, reader, group: int):
 
 
 # ---------------------------------------------------------------- phase 10
-# ``python -m niceslam_tpu_torch`` in a subprocess, reporting every kernel's
-# launch count on standard error once the command line's own ``main`` ends.
-CLI_WITH_LAUNCHES = (
-    "import json, sys\n"
-    "from niceslam_tpu_torch.__main__ import main\n"
-    "from niceslam_tpu_torch.ops import packed_kernels as pk, trilerp_kernels as tk\n"
-    "import torch\n"
-    "rc = main(sys.argv[1:])\n"
-    "print('launches ' + json.dumps({**tk.LAUNCHES, **pk.LAUNCHES}), file=sys.stderr)\n"
-    "print(f'peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB', file=sys.stderr)\n"
-    "from niceslam_tpu_torch.slam.programs import pool_bytes\n"
-    "print(f'pool {pool_bytes() / 2**20:.1f} MiB', file=sys.stderr)\n"
-    "sys.exit(rc)\n"
-)
+# ``python -m niceslam_tpu_torch`` in a subprocess, watched by
+# :func:`envelope_cli`, which reports every kernel's launch count on standard
+# error once the command line's own ``main`` ends.
+CLI_WATCHED = "import sys, chip_smoke\nsys.exit(chip_smoke.envelope_cli(sys.argv[1:]))\n"
 # The kernels' names in a profiler trace (csrc/trilerp.cu: K1, and K2's two
 # kernels).
 K1_K2_NAMES = ("trilerp_fwd_kernel", "trilerp_bwd_points_kernel", "trilerp_bwd_fill_kernel")
@@ -1462,36 +1474,16 @@ K1_K2_NAMES = ("trilerp_fwd_kernel", "trilerp_bwd_points_kernel", "trilerp_bwd_f
 
 def write_cofusion_layout(root: str, n_frames: int, cfg):
     """The synthetic scene in the Co-Fusion layout at the configuration's
-    640x480: ``colour/Color0NNN.png`` (io/png.py), ``depth_noise/
-    Depth0NNN.exr`` (io/exr_write.py, ZIP) and ``trajectories/gt-cam-0.txt``
-    (OpenCV-style quaternions), the first frames of the synthetic reader's
-    default 60-frame trajectory. Returns the colour (uint8), depth and
-    OpenGL poses written."""
-    from scipy.spatial.transform import Rotation
-
-    from niceslam_tpu_torch.core.rays import Intrinsics
-    from niceslam_tpu_torch.io import exr_write, png
-    from niceslam_tpu_torch.io.datasets.base import opencv_to_opengl
-    from niceslam_tpu_torch.io.datasets.synthetic import circular_trajectory, render_box_scene
+    size (``niceslam_tpu_torch.make_fixture_dataset``: ``colour/Color0NNN.png``,
+    ``depth_noise/Depth0NNN.exr``, ``trajectories/gt-cam-0.txt``): the first
+    frames of the synthetic reader's 60-frame trajectory (the arc cut to
+    ``n_frames / 60`` of its 0.3). Returns the
+    colour (uint8), depth and OpenGL poses written."""
+    from niceslam_tpu_torch import make_fixture_dataset as fixture
 
     c = cfg.cam
-    intr = Intrinsics(H=c.H, W=c.W, fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy)
-    box = np.asarray(cfg.bound, np.float32) * 0.9
-    poses = circular_trajectory(60)[:n_frames]
-    for d in ("colour", "depth_noise", "trajectories"):
-        os.makedirs(os.path.join(root, d), exist_ok=True)
-    colors, depths = [], []
-    with open(os.path.join(root, "trajectories", "gt-cam-0.txt"), "w") as traj:
-        for k, c2w in enumerate(poses):
-            color, depth = render_box_scene(intr, c2w, box)
-            u8 = (np.clip(color, 0, 1) * 255).astype(np.uint8)
-            png.write_png(os.path.join(root, "colour", f"Color0{k:03d}.png"), u8)
-            exr_write.write_exr(os.path.join(root, "depth_noise", f"Depth0{k:03d}.exr"), depth)
-            cv = opencv_to_opengl(c2w)
-            q, t = Rotation.from_matrix(cv[:3, :3]).as_quat(), cv[:3, 3]
-            traj.write(f"{k} " + " ".join(f"{v:.9f}" for v in (*t, *q)) + "\n")
-            colors.append(u8)
-            depths.append(depth)
+    poses, colors, depths = fixture.write_layout("cofusion", root, n_frames, c.H, c.W, c.fx,
+                                                 arc=0.3 * n_frames / 60, keep=True)
     return colors, depths, poses
 
 
@@ -1566,10 +1558,11 @@ def write_pt_decoders(tmp: str):
 
 
 def run_cli(argv, tag: str, timeout: int):
-    """The command line in a subprocess on the card; returns its standard
-    output lines and the kernels' launch counts."""
+    """The command line in a subprocess on the card, watched
+    (:func:`envelope_cli`); returns its standard output lines, the kernels'
+    launch counts, its wall seconds and its standard error."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CLI_WITH_LAUNCHES, *argv], cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-c", CLI_WATCHED, *argv], cwd=ROOT,
                           capture_output=True, text=True, timeout=timeout)
     dt = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -1581,7 +1574,7 @@ def run_cli(argv, tag: str, timeout: int):
     log(f"cli [{tag}]: rc 0 in {dt:.1f} s (process included); last line {lines[-1]}; "
         f"launches {launches}")
     check_route_launches(f"cli [{tag}]", "fused", launches)
-    return lines, launches, dt
+    return lines, launches, dt, proc.stderr
 
 
 def busy_shares(trace_path: str):
@@ -1646,7 +1639,7 @@ def phase_real_data(frames: int = 6):
         # The run: every frame's panel from frame 2 on (vis_freq 2,
         # no_vis_on_first_frame), the last frame's map checkpointed.
         vis, ck = os.path.join(tmp, "vis"), os.path.join(tmp, "ck")
-        lines, _, dt = run_cli(argv(
+        lines, _, dt, _ = run_cli(argv(
             ["--frames", str(frames), "--log", os.path.join(tmp, "run.jsonl"),
              "--trajectory", os.path.join(tmp, "traj.npy"), "--vis-dir", vis,
              "--ckpt-dir", ck], **{"mapping.vis_freq": 2, "mapping.ckpt_freq": frames - 1}),
@@ -1815,35 +1808,20 @@ def _rank_main(rank, world, init, jobs, out_dir):
         raise
 
 
-def spawn_ranks(world: int, jobs, deadline_s: float = 240.0):
-    """Run ``jobs`` (``[(name, kwargs)]``) on ``world`` ranks on cuda:0;
-    returns ``results[rank][job]``. A failed rank or the deadline kills
-    them all and raises."""
-    import multiprocessing as mp
+def run_rank_jobs(world: int, jobs, deadline_s: float = 240.0):
+    """Run ``jobs`` (``[(name, kwargs)]``) on ``world`` ranks on cuda:0
+    (``runtime.spawn_ranks``); returns ``results[rank][job]``. A failed rank
+    or the deadline kills them all and raises with the ranks' errors."""
+    from niceslam_tpu_torch.parallel.runtime import spawn_ranks
 
-    ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         init = os.path.join(tmp, "rendezvous")
-        procs = [ctx.Process(target=_rank_main, args=(r, world, init, jobs, tmp), daemon=True)
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        t_end = time.monotonic() + deadline_s
         try:
-            while True:
-                codes = [p.exitcode for p in procs]
-                if all(c == 0 for c in codes):
-                    break
-                if any(c not in (None, 0) for c in codes) or time.monotonic() > t_end:
-                    errs = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp))
-                            if f.endswith(".err")]
-                    raise AssertionError(f"ranks: exit codes {codes}\n" + "\n".join(errs))
-                time.sleep(0.1)
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                p.join(10)
+            spawn_ranks(_rank_main, range(world), (world, init, jobs, tmp), deadline_s)
+        except RuntimeError as e:
+            errs = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp))
+                    if f.endswith(".err")]
+            raise AssertionError(f"{e}\n" + "\n".join(errs)) from None
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -2078,12 +2056,14 @@ def _mapping_job_on_route(path, n_map, n_kf, which, route, rank):
 
 
 def _system_job(frames: int, iters_first: int, n_map: int = 1, n_kf: int = 2,
-                importance: bool = False, rank=0):
+                importance: bool = False, cut=None, rank=0):
     """``NiceSLAM`` on the bench configuration (with ``importance`` at
     ``N_IMPORTANCE``) attached to this rank of an ``n_map x n_kf`` mesh,
     ``frames`` frames graphed (after ``precompile``), then with
-    ``capture=False``: each run's per-frame seconds, digest, ATE, the
-    process's graph pool and peak memory."""
+    ``capture=False``; with ``cut`` (frames, ``iters_first``) the eager run
+    is that cut, beside a graphed run of it (``graphed cut``): each run's
+    per-frame seconds, digest, ATE, the process's graph pool and peak
+    memory."""
     from niceslam_tpu_torch.config.schema import ParallelConfig
     from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
     from niceslam_tpu_torch.parallel.mesh import make_mesh
@@ -2092,23 +2072,27 @@ def _system_job(frames: int, iters_first: int, n_map: int = 1, n_kf: int = 2,
     from niceslam_tpu_torch.slam.system import NiceSLAM
 
     cfg = bench_config(sync="strict")
-    cfg = dataclasses.replace(
-        cfg, parallel=ParallelConfig(n_processes=2, map=n_map, kf=n_kf),
-        mapping=dataclasses.replace(cfg.mapping, iters_first=iters_first))
+    cfg = dataclasses.replace(cfg, parallel=ParallelConfig(n_processes=2, map=n_map, kf=n_kf))
     if importance:
         cfg = with_importance(cfg)
     rt = MapKfRuntime(make_mesh(n_map, n_kf), "cuda:0", "gloo", rank, 2)
     out = dict(job="system", mesh=f"{n_map}x{n_kf}{f' imp{N_IMPORTANCE}' if importance else ''}")
-    for tag, capture in (("graphed", None), ("eager", False)):
-        reader = SyntheticBoxReader(cfg, n_frames=36)
-        slam = NiceSLAM(cfg, reader=reader, seed=0, device="cuda:0", capture=capture)
-        slam.n_imgs = frames
+    runs = [("graphed", None, frames, iters_first)]
+    if cut is not None:
+        runs.append(("graphed cut", None, *cut))
+    runs.append(("eager", False, *(cut or (frames, iters_first))))
+    for tag, capture, n, first_iters in runs:
+        run_cfg = dataclasses.replace(
+            cfg, mapping=dataclasses.replace(cfg.mapping, iters_first=first_iters))
+        reader = SyntheticBoxReader(run_cfg, n_frames=36)
+        slam = NiceSLAM(run_cfg, reader=reader, seed=0, device="cuda:0", capture=capture)
+        slam.n_imgs = n
         rt.attach(slam)
         torch.cuda.reset_peak_memory_stats()
         set_launches({})
         _, pre_ms, _, pre_calls = _timed(slam.precompile)
         dts, ars = [], []
-        for k in range(frames):
+        for k in range(n):
             _, ms, ar_ms, _ = _timed(lambda: slam.step(reader[k]))
             dts.append(ms / 1e3)
             ars.append(ar_ms / 1e3)
@@ -2188,9 +2172,21 @@ def mapping_pass_payload(cfg, run: dict, path: str, iters, routes=("fused",)):
     return dt
 
 
+SYSTEM_RUNS = ("graphed", "graphed cut", "eager")
+# The graphed runtime-attached systems' digests at the smoke's own 8 frames
+# and mapping.iters_first 1500, each equal to the eager run's of the same
+# frames when the smoke still ran those eagerly; their eager runs are now
+# the cut (CUT) only, so the 8-frame graphed runs are held to these.
+GRAPHED_SYSTEM_DIGESTS = {
+    "1x2": "0d53a360d19cd76a3b6c6c24a75843bb238f5450",
+    "2x1": "c3b496e537a9a4b50ad3ac7fa2a98e24cc37650d",
+}
+GRAPHED_SYSTEM_AT = (8, 1500)
+
+
 def log_system_job(rank: int, r: dict):
     """One rank's runtime-attached system, graphed and eager."""
-    for tag in ("graphed", "eager"):
+    for tag in (t for t in SYSTEM_RUNS if t in r):
         x = r[tag]
         log(f"multi system {r['mesh']} rank {rank} [{tag}]: precompile {x['precompile_s']:.3f} s "
             f"({x['captures']} graphs: {x['kinds']}, {x['precompile_all_reduces']} "
@@ -2201,29 +2197,43 @@ def log_system_job(rank: int, r: dict):
             f"peak {x['peak_mib']:.1f} MiB")
 
 
-def check_system_job(rows):
-    """Every rank's graphed run gives its eager run's digest, the ranks
-    agree, no track is lost, the graphed run replayed the solve, keyframe
-    and mapping graphs, and ``precompile`` issued no collective."""
-    digests = {r[tag]["digest"] for r in rows for tag in ("graphed", "eager")}
+def check_system_job(rows, at):
+    """Every rank's graphed run of the eager run's frames (the ``graphed
+    cut`` where there is one) gives the eager run's digest, every run's
+    ranks agree, the graphed run beside a cut gives its recorded digest
+    (``GRAPHED_SYSTEM_DIGESTS``) where it ran at ``GRAPHED_SYSTEM_AT``
+    (``at``: its frames and mapping.iters_first), no track is lost, the
+    graphed run replayed the solve, keyframe and mapping graphs, and
+    ``precompile`` issued no collective."""
+    tags = [t for t in SYSTEM_RUNS if t in rows[0]]
+    ref = "graphed cut" if "graphed cut" in tags else "graphed"
+    digests = {t: {r[t]["digest"] for r in rows} for t in tags}
     g = rows[0]["graphed"]
+    mesh = rows[0]["mesh"]
     problems = []
-    if len(digests) != 1:
+    if any(len(d) != 1 for d in digests.values()) or digests[ref] != digests["eager"]:
         problems.append(f"digests {digests}")
-    if any(r[t]["precompile_all_reduces"] for r in rows for t in ("graphed", "eager")):
+    if (ref != "graphed" and tuple(at) == GRAPHED_SYSTEM_AT
+            and digests["graphed"] != {GRAPHED_SYSTEM_DIGESTS[mesh]}):
+        problems.append(f"the graphed {at[0]}-frame digests {digests['graphed']}, recorded "
+                        f"{GRAPHED_SYSTEM_DIGESTS[mesh]}")
+    if any(r[t]["precompile_all_reduces"] for r in rows for t in tags):
         problems.append("precompile issued a collective")
     if not {"map", "track", *KEYFRAME_PROGRAMS} <= set(g["kinds"]):
         problems.append(f"graphs captured: {g['kinds']}")
-    if not all(r[t]["finite"] and r[t]["ate_cm"] < ATE_LOST_CM for r in rows
-               for t in ("graphed", "eager")):
-        problems.append(f"lost track: {[r[t]['ate_cm'] for r in rows for t in ('graphed', 'eager')]}")
-    mesh = rows[0]["mesh"]
+    if not all(r[t]["finite"] and r[t]["ate_cm"] < ATE_LOST_CM for r in rows for t in tags):
+        problems.append(f"lost track: {[r[t]['ate_cm'] for r in rows for t in tags]}")
     if problems:
         raise AssertionError(f"multi system {mesh}: {problems}")
-    log(f"multi system {mesh}: graphed and eager equal on every rank (sha1 {digests.pop()}); "
-        f"frame 0 graphed {g['dts'][0]:.3f} s, eager {rows[0]['eager']['dts'][0]:.3f} s; "
-        f"after frame 0 graphed {sum(g['dts'][1:]):.3f} s, eager "
-        f"{sum(rows[0]['eager']['dts'][1:]):.3f} s; ATE {g['ate_cm']:.4f} cm (rank 0)")
+    e = rows[0]["eager"]
+    held = " (the recorded digest)" if tuple(at) == GRAPHED_SYSTEM_AT else ""
+    cut = (f"graphed {len(g['dts'])} frames sha1 {digests['graphed'].pop()} on every "
+           f"rank{held}; "
+           f"the cut ({len(e['dts'])} frames) " if ref != "graphed" else "")
+    log(f"multi system {mesh}: {cut}graphed and eager equal on every rank (sha1 "
+        f"{digests['eager'].pop()}); frame 0 graphed {rows[0][ref]['dts'][0]:.3f} s, eager "
+        f"{e['dts'][0]:.3f} s; after frame 0 graphed {sum(rows[0][ref]['dts'][1:]):.3f} s, eager "
+        f"{sum(e['dts'][1:]):.3f} s; ATE {g['ate_cm']:.4f} cm (rank 0)")
 
 
 def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int = 5):
@@ -2252,14 +2262,16 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
             jobs += [("mapping", dict(path=imp_path, n_map=m, n_kf=k, which=w, route=route))
                      for m, k in meshes if m > 1 for w, route in enumerate(ROUTE_KERNELS)]
             if world == 2:
+                # Eager systems at 8 frames took ~200 s of the smoke: the
+                # graphed-against-eager check runs on the cut.
                 jobs += [("system", dict(frames=run["n_frames"], n_map=m, n_kf=k,
-                                         iters_first=cfg.mapping.iters_first))
+                                         iters_first=cfg.mapping.iters_first, cut=list(CUT)))
                          for m, k in ((1, 2), (2, 1))]
                 frames, iters_first = CUT
                 jobs.append(("system", dict(frames=frames, n_map=2, n_kf=1, importance=True,
                                             iters_first=iters_first)))
             t0 = time.perf_counter()
-            res = spawn_ranks(world, jobs, deadline_s=900.0 if world == 2 else 300.0)
+            res = run_rank_jobs(world, jobs, deadline_s=900.0 if world == 2 else 300.0)
             log(f"multi: {world} ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s "
                 f"(processes included)")
             for rank, rows in enumerate(res):
@@ -2325,7 +2337,7 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                 if rows[0]["job"] == "mapping" and len({r["digest"] for r in rows}) != 1:
                     raise AssertionError(f"multi: the ranks' maps differ: {rows}")
                 if rows[0]["job"] == "system":
-                    check_system_job(rows)
+                    check_system_job(rows, (run["n_frames"], cfg.mapping.iters_first))
             for r in res[0]:
                 if r["job"] == "mapping" and r["iters"] == max(iters) and not r["importance"]:
                     log(f"multi: mapping {r['n_map']}x{r['n_kf']}: {r['seconds']:.3f} s against "
@@ -2363,11 +2375,9 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
     # on 2 ranks on the shipped mesh (map 1, every rank on kf).
     with tempfile.TemporaryDirectory() as tmp:
         def cli_ranks(config, overrides, world, extra, tag, segments, frames=cli_frames):
-            import socket
+            from niceslam_tpu_torch.parallel.runtime import free_port
 
-            with socket.socket() as s:
-                s.bind(("localhost", 0))
-                port = s.getsockname()[1]
+            port = free_port()
             argv = [os.path.join(ROOT, "configs", config), "--frames", str(frames),
                     "--ckpt-dir", os.path.join(tmp, "ck"),
                     "--log", os.path.join(tmp, f"{tag}.jsonl"),
@@ -2378,7 +2388,7 @@ def phase_multi(cfg, run: dict, want_digest: str, iters=(4, 12), cli_frames: int
                 argv += ["--set", o]
             t0 = time.perf_counter()
             procs = [subprocess.Popen(
-                [sys.executable, "-c", CLI_WITH_LAUNCHES, *argv, "--process-id", str(r)],
+                [sys.executable, "-c", CLI_WATCHED, *argv, "--process-id", str(r)],
                 cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for r in range(world)]
             outs = []
@@ -2939,6 +2949,307 @@ def phase_entry_points():
             raise AssertionError(f"kernel bench: record {r}")
 
 
+# ---------------------------------------------------------------- phase 16
+# The reference envelope: LONGRUN_r05.json's run of the JAX package, the
+# command line on configs/cofusion_synth849.yaml with these overrides, on the
+# Co-Fusion layout of 849 frames along two orbits (make_fixture_dataset
+# --frames 849 --arc 2.0), then a resume from its frame-500 checkpoint to
+# frame 530. ``--reference-run`` runs it; phase 16 runs each mechanism of
+# it once on a cut (ENVELOPE_SETS on top, ENVELOPE_FRAMES frames at the
+# long run's motion per frame).
+LONGRUN_SETS = (
+    "sync_method=async", "mapping.max_keyframes=16", "mapping.ckpt_freq=500",
+    "mapping.bootstrap_frames=5", "mapping.fs_weight=3.0", "mapping.retrack=true",
+    "mapping.lock_after=8", "tracking.iters=20", "tracking.pixels=400",
+    "tracking.gn_depth_offset_sigma=0.05", "verbose=false",
+)
+LONGRUN_FRAMES, LONGRUN_ARC, LONGRUN_RESUME = 849, 2.0, (500, 530)
+# The cut: a ring of 4 slots admitting every other mapped frame (the 5
+# bootstrap frames fill it and the fifth reuses a slot), voxels locked after
+# 2 events, a checkpoint at frame 6 and a resume from it, the colour refine.
+ENVELOPE_SETS = ("mapping.iters_first=100", "mapping.keyframe_every=2",
+                 "mapping.max_keyframes=4", "mapping.lock_after=2", "mapping.ckpt_freq=6",
+                 "mapping.color_refine=true")
+ENVELOPE_FRAMES = 12
+# Frames whose graph pool and peak device memory the watched command line
+# records (and its last frame).
+MEMORY_MARKS = (100, 400, 800)
+
+
+def envelope_cli(argv) -> int:
+    """The command line's ``main(argv)`` with its system watched; prints on
+    standard error the kernels' launches, the peak memory and the graph pool,
+    then ``envelope {...}``: the frame at which
+    the keyframe ring first reused a slot, the ring's frames and count at the
+    end, the graph pool and peak device memory (MiB) at ``MEMORY_MARKS`` and
+    the last frame, and the voxels locked per level at the end. With
+    ``--check-locks`` first, every mapping event also holds the grid values
+    of the voxels locked when it starts: the event must leave them equal bit
+    for bit (``lock_checks`` counts the events that held some), but the
+    last frame's colour refine, whose levels that moved a locked voxel are
+    recorded (``refine_moved_locked``)."""
+    from niceslam_tpu_torch import __main__ as cli
+    from niceslam_tpu_torch.slam.programs import pool_bytes
+    from niceslam_tpu_torch.slam.system import NiceSLAM
+
+    check = argv[:1] == ["--check-locks"]
+    argv = argv[1:] if check else argv
+    rec = {"first_reuse": None, "memory": {}, "locked": None, "lock_checks": 0}
+    step, map_frame = NiceSLAM.step, NiceSLAM.map_frame
+
+    def watched_map_frame(self, frame, first=False):
+        idx, count = len(self.est_c2w) - 1, self._kf_count
+        held = {}
+        if check and self._obs_counts is not None:
+            self._verify_pending()  # map_frame's first act: settle the last event
+            lock = self.cfg.mapping.lock_after
+            for lvl, c in self._obs_counts.items():
+                locked = c[..., 0] >= lock
+                if bool(locked.any()):
+                    held[lvl] = (locked, self.state.grids[lvl][locked].clone())
+        map_frame(self, frame, first=first)
+        moved = [lvl for lvl, (locked, vals) in held.items()
+                 if not torch.equal(self.state.grids[lvl][locked], vals)]
+        if check and idx == self.n_imgs - 1 and self.cfg.mapping.color_refine and not first:
+            # The refine passes run without frustum selection, and a pass
+            # without it applies no update mask, the locks included, in both
+            # packages (ROADMAP queue 3 item 7): recorded, not raised.
+            rec["refine_moved_locked"] = moved
+        elif moved:
+            raise AssertionError(f"frame {idx}: a locked voxel of {moved} changed")
+        else:
+            rec["lock_checks"] += bool(held)
+        if rec["first_reuse"] is None and count >= self.state.keyframes.capacity \
+                and self._kf_count > count:
+            rec["first_reuse"] = idx
+
+    def watched_step(self, frame):
+        step(self, frame)
+        idx = len(self.est_c2w) - 1
+        if idx in MEMORY_MARKS or idx == self.n_imgs - 1:
+            rec["memory"][idx] = {"pool_mib": round(pool_bytes() / 2**20, 1),
+                                  "peak_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1)}
+        if idx == self.n_imgs - 1:
+            rec["kf_count"] = self._kf_count
+            rec["kf_frames"] = sorted(int(f) for f in self._kf_slot_frame)
+            if self._obs_counts is not None:
+                lock = self.cfg.mapping.lock_after
+                rec["locked"] = {lvl: int((c >= lock).sum())
+                                 for lvl, c in self._obs_counts.items()}
+                rec["voxels"] = {lvl: int(c.numel()) for lvl, c in self._obs_counts.items()}
+
+    NiceSLAM.step, NiceSLAM.map_frame = watched_step, watched_map_frame
+    try:
+        rc = cli.main(argv)
+    finally:
+        NiceSLAM.step, NiceSLAM.map_frame = step, map_frame
+    print("launches " + json.dumps(all_launches()), file=sys.stderr)
+    print(f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", file=sys.stderr)
+    print(f"pool {pool_bytes() / 2**20:.1f} MiB", file=sys.stderr)
+    print("envelope " + json.dumps(rec), file=sys.stderr)
+    return rc
+
+
+def watched_run(argv, tag: str, timeout: int, check_locks=False):
+    """:func:`envelope_cli` in a subprocess on the card (``run_cli``);
+    returns the last line of standard output, the watch record, the mapping
+    events and rollbacks of its log (``--log`` in ``argv``) and the wall
+    seconds."""
+    lines, _, dt, err = run_cli(["--check-locks", *argv] if check_locks else argv, tag,
+                                timeout)
+    rec = json.loads(next(line for line in err.splitlines()[::-1]
+                          if line.startswith("envelope "))[len("envelope "):])
+    events = rec_events(argv[argv.index("--log") + 1])
+    rec["map_events"] = len({e["frame"] for e in events if e["event"] == "map"})
+    rec["map_passes"] = sum(e["event"] == "map" for e in events)
+    rec["rollbacks"] = sum(e["event"] == "map_rejected" for e in events)
+    return json.loads(lines[-1]), rec, dt
+
+
+def track_errors(tag: str, traj_path: str, poses, frames: int) -> dict:
+    """The trajectory against the poses written: raises unless every pose
+    is finite; returns the ATE (cm) and each frame's raw position error
+    (cm) over the first ``frames`` frames, and why the track counts as lost
+    there (``lost_track``, ``""`` if it does not)."""
+    from niceslam_tpu_torch.eval.ate import ate_rmse
+
+    traj = np.load(traj_path)
+    if not (traj.shape == (len(poses), 4, 4) and np.isfinite(traj).all()):
+        raise AssertionError(f"{tag}: trajectory {traj.shape}, finite {np.isfinite(traj).all()}")
+    gt = np.stack(poses)
+    err_cm = 100.0 * np.linalg.norm(traj[:, :3, 3] - gt[:, :3, 3], axis=1)
+    ate_cm = 100.0 * ate_rmse(list(traj[:frames]), list(gt[:frames]))
+    return {"traj": traj, "gt": gt, "err_cm": err_cm, "ate_cm": ate_cm,
+            "lost": lost_track(ate_cm, err_cm[:frames])}
+
+
+def check_envelope_run(tag: str, traj_path: str, poses, frames: int) -> dict:
+    """:func:`track_errors`, failing on a lost track in the first ``frames``
+    frames."""
+    acc = track_errors(tag, traj_path, poses, frames)
+    if acc["lost"]:
+        raise AssertionError(f"{tag}: the track is lost in frames 0-{frames - 1}: "
+                             f"{acc['lost']}")
+    return acc
+
+
+def error_curve(acc: dict, every: int = 50) -> str:
+    """The raw position error every ``every`` frames, the aligned ATE of
+    the frames up to each, and the first frames past the lost-track bounds."""
+    from niceslam_tpu_torch.eval.ate import ate_rmse
+
+    traj, gt, err = acc["traj"], acc["gt"], acc["err_cm"]
+    marks = list(range(every, len(err), every)) + [len(err) - 1]
+    raw = {k: round(float(err[k]), 2) for k in marks}
+    ate = {k: round(100.0 * ate_rmse(list(traj[:k + 1]), list(gt[:k + 1])), 2) for k in marks}
+    first_raw = next((k for k, e in enumerate(err) if e >= RAW_LOST_CM), None)
+    first_ate = next((k for k in range(2, len(err))
+                      if 100.0 * ate_rmse(list(traj[:k + 1]), list(gt[:k + 1])) >= ATE_LOST_CM),
+                     None)
+    return (f"raw position error (cm) by frame {json.dumps(raw)}; ATE (cm) of frames 0-k "
+            f"{json.dumps(ate)}; raw error first >= {RAW_LOST_CM} cm at frame {first_raw}, "
+            f"ATE of frames 0-k first >= {ATE_LOST_CM} cm at k = {first_ate}")
+
+
+def envelope_argv(config: str, data: str, tmp: str, tag: str, sets, extra=()):
+    argv = [config, "--set", f"data.input_folder={data}", "--log",
+            os.path.join(tmp, f"{tag}.jsonl"), "--ckpt-dir", os.path.join(tmp, "ck"),
+            "--trajectory", os.path.join(tmp, f"{tag}.npy"), *extra]
+    for o in sets:
+        argv += ["--set", o]
+    return argv
+
+
+def phase_envelope():
+    """Each mechanism of the reference run once, through the command line on
+    the Co-Fusion layout at 640x480 (``make_fixture_dataset``) with the long
+    run's overrides cut by ``ENVELOPE_SETS``: the ring reuses a slot, voxels
+    lock and no event changes a locked voxel's grid values, a checkpoint at
+    frame 6 resumes to the end with the same first 7 poses, the colour
+    refine runs on the last frame, and the track is not lost."""
+    from niceslam_tpu_torch import make_fixture_dataset as fixture
+
+    config = os.path.join(ROOT, "configs", "cofusion.yaml")
+    sets = LONGRUN_SETS + ENVELOPE_SETS
+    frames, ck = ENVELOPE_FRAMES, 6
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "room")
+        t0 = time.perf_counter()
+        poses = fixture.write_layout("cofusion", data, frames,
+                                     arc=LONGRUN_ARC * frames / LONGRUN_FRAMES)
+        log(f"envelope: wrote {frames} frames of the Co-Fusion layout in "
+            f"{time.perf_counter() - t0:.2f} s")
+        last, rec, dt = watched_run(envelope_argv(config, data, tmp, "run", sets,
+                                                  ["--frames", str(frames)]),
+                                    "envelope", timeout=300, check_locks=True)
+        acc = check_envelope_run("envelope", os.path.join(tmp, "run.npy"), poses, frames)
+        log(f"envelope: rc 0 in {dt:.1f} s, fps_avg {last['fps_avg']}, ATE {acc['ate_cm']:.3f} "
+            f"cm, worst raw error {acc['err_cm'].max():.2f} cm at frame "
+            f"{int(np.argmax(acc['err_cm']))}; "
+            f"{rec['map_events']} mapping events ({rec['map_passes']} passes), "
+            f"{rec['rollbacks']} rollbacks; ring of 4 first reused a slot at frame "
+            f"{rec['first_reuse']}, holds frames {rec['kf_frames']} of {rec['kf_count']} "
+            f"admitted; locked voxels {rec['locked']} of {rec['voxels']}, "
+            f"{rec['lock_checks']} events held them unchanged; memory {rec['memory']}")
+        if rec["first_reuse"] is None or rec["kf_count"] <= 4:
+            raise AssertionError(f"envelope: the ring never reused a slot: {rec}")
+        if not (rec["locked"] and sum(rec["locked"].values()) > 0 and rec["lock_checks"] > 0):
+            raise AssertionError(f"envelope: no voxel was locked: {rec}")
+        refine = [p for p in rec_events(os.path.join(tmp, "run.jsonl"))
+                  if p["event"] == "map" and p["frame"] == frames - 1 and not p["coarse"]]
+        if len(refine) != 5:
+            raise AssertionError(f"envelope: the last frame's passes {refine}, not the 5 "
+                                 "colour refine passes")
+        log(f"envelope: the colour refine ran 5 passes on frame {frames - 1} (stages "
+            f"{refine[0]['stages']}); they moved locked voxels of {rec['refine_moved_locked']}: "
+            f"a pass without frustum selection applies no update mask, the locks included, "
+            f"in both packages (ROADMAP queue 3 item 7)")
+        ckpt = os.path.join(tmp, "ck", f"frame_{ck:06d}")
+        last2, rec2, dt2 = watched_run(envelope_argv(
+            config, data, tmp, "resume", sets,
+            ["--frames", str(frames), "--resume", ckpt, "--no-precompile"]),
+            "envelope resume", timeout=300, check_locks=True)
+        traj, traj2 = (np.load(os.path.join(tmp, f"{t}.npy")) for t in ("run", "resume"))
+        check_envelope_run("envelope resume", os.path.join(tmp, "resume.npy"), poses, frames)
+        if not np.array_equal(traj2[:ck + 1], traj[:ck + 1]):
+            raise AssertionError("envelope resume: the resumed trajectory does not start with "
+                                 "the saved one")
+        log(f"envelope resume: rc 0 in {dt2:.1f} s from {os.path.basename(ckpt)}, its first "
+            f"{ck + 1} poses equal the run's bit for bit, ATE {last2['ate_rmse_cm']} cm; "
+            f"locked voxels at the end {rec2['locked']} (the counts restart at 0 on a resume: "
+            f"ROADMAP queue 3 item 2)")
+
+
+def rec_events(path: str):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def phase_reference_run() -> dict:
+    """The reference-scale run (``--reference-run``): the 849-frame fixture
+    written, ``configs/cofusion_synth849.yaml`` with ``LONGRUN_SETS``
+    through the watched command line,
+    then the resume leg. Fails on a non-zero exit, a non-finite pose or a
+    lost track on the first orbit, after printing every figure; the ATE
+    over the whole run is recorded (no loop closure: the JAX run drifted by
+    design)."""
+    from niceslam_tpu_torch import make_fixture_dataset as fixture
+
+    config = os.path.join(ROOT, "configs", "cofusion_synth849.yaml")
+    frames, (ck, end) = LONGRUN_FRAMES, LONGRUN_RESUME
+    sets = LONGRUN_SETS
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "cofusion_synth849")
+        t0 = time.perf_counter()
+        poses = fixture.write_layout("cofusion", data, frames, arc=LONGRUN_ARC)
+        write_s = time.perf_counter() - t0
+        log(f"reference run: wrote {frames} frames (Co-Fusion layout, 640x480, arc "
+            f"{LONGRUN_ARC}) in {write_s:.2f} s with {fixture.default_workers(frames)} "
+            f"processes")
+        last, rec, dt = watched_run(envelope_argv(config, data, tmp, "run", sets),
+                                    "reference run", timeout=3000)
+        orbit = frames // 2
+        acc = track_errors("reference run", os.path.join(tmp, "run.npy"), poses, orbit)
+        log(f"reference run: rc 0, {frames} frames in {dt:.1f} s wall (process included), "
+            f"fps_avg {last['fps_avg']}, ATE {last['ate_rmse_cm']} cm over the run, "
+            f"{acc['ate_cm']:.3f} cm over the first orbit (frames 0-{orbit - 1})")
+        log(f"reference run: {error_curve(acc)}")
+        log(f"reference run: {rec['map_events']} mapping events ({rec['map_passes']} passes), "
+            f"{rec['rollbacks']} rollbacks")
+        log(f"reference run: the keyframe ring ({rec['kf_count']} admitted) first reused a "
+            f"slot at frame {rec['first_reuse']}; at the end it holds frames "
+            f"{rec['kf_frames']}")
+        log(f"reference run: locked voxels per level at the end {rec['locked']} of "
+            f"{rec['voxels']}")
+        log(f"reference run: graph pool and peak device memory (MiB) by frame "
+            f"{json.dumps(rec['memory'])}")
+        ckpt = os.path.join(tmp, "ck", f"frame_{ck:06d}")
+        last2, rec2, dt2 = watched_run(envelope_argv(
+            config, data, tmp, "resume", sets,
+            ["--resume", ckpt, "--frames", str(end)]), "reference resume", timeout=900)
+        acc2 = track_errors("reference resume", os.path.join(tmp, "resume.npy"), poses[:end],
+                            orbit)
+        same = np.array_equal(acc2["traj"][:ck + 1], acc["traj"][:ck + 1])
+        log(f"reference resume: rc 0 from {os.path.basename(ckpt)} to frame {end} in "
+            f"{dt2:.1f} s, the first {ck + 1} poses equal the run's: {same}, ATE "
+            f"{last2['ate_rmse_cm']} cm, raw error at frame {end - 1} "
+            f"{acc2['err_cm'][-1]:.2f} cm (the run's {acc['err_cm'][end - 1]:.2f}), locked "
+            f"voxels at its end {rec2['locked']} (the counts restart at 0 on a resume: "
+            f"ROADMAP queue 3 item 2)")
+        if not same:
+            raise AssertionError("reference resume: the resumed trajectory does not start "
+                                 "with the saved one")
+        if acc["lost"]:
+            raise AssertionError(f"reference run: the track is lost on the first orbit "
+                                 f"(frames 0-{orbit - 1}): {acc['lost']}")
+    return {"frames": frames, "write_s": write_s, "wall_s": dt, "fps_avg": last["fps_avg"],
+            "ate_cm": last["ate_rmse_cm"], "ate_cm_first_orbit": acc["ate_cm"],
+            "map_events": rec["map_events"], "rollbacks": rec["rollbacks"],
+            "first_reuse": rec["first_reuse"], "locked": rec["locked"],
+            "memory": rec["memory"], "resume": {"rc": 0, "ate_cm": last2["ate_rmse_cm"],
+                                                "wall_s": dt2}}
+
+
 def phase_pretrain_recipe(cfg, n_frames: int) -> dict:
     """The full pretraining recipe on the card, then the fused main path with
     the decoders it wrote and with the shipped ones."""
@@ -2972,6 +3283,8 @@ def main():
                     help="phases 1, 4 (fused) and 11 only")
     ap.add_argument("--pretrain-recipe", action="store_true",
                     help="phase 1, the full pretraining recipe, phase 4 with its decoders")
+    ap.add_argument("--reference-run", action="store_true",
+                    help="phase 1, then the 849-frame reference run and its resume leg")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2989,6 +3302,14 @@ def main():
     phase_card()
     if args.pretrain_recipe:
         print(json.dumps(phase_pretrain_recipe(cfg, args.frames)), flush=True)
+        return 0
+    if args.reference_run:
+        log(f"reference run: {json.dumps(phase_reference_run())}")
+        log(f"total seconds: {time.perf_counter() - t_all:.1f}")
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if args.multi_only:
         run = phase_main_path(cfg, args.frames, keep=1)
@@ -3057,6 +3378,10 @@ def main():
     phase_importance(cfg, runs["fused"])
     log(f"importance phase: {time.perf_counter() - t0:.1f} s")
     log_pool("the importance pass (phase 15)")
+    t0 = time.perf_counter()
+    phase_envelope()
+    log(f"envelope phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the cut envelope (phase 16)")
     log(f"graph pool of the process where each phase ended (MiB): {json.dumps(POOL_READINGS)}")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]

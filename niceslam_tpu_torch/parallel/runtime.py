@@ -29,6 +29,10 @@ one process per rank (the JAX package runs one controller per host), so
   ``render_image``, the mesher and checkpoints read that copy. Every rank then solves the same pose from
   the same draws, through the system's programs.
 
+Local launches (the scaling bench, the multi-process demo):
+:func:`spawn_ranks` runs one spawned process per rank and kills the rest
+when one fails; :func:`free_port` picks a coordinator port.
+
 Fault model: all or nothing, as in the JAX package. A rank that fails
 leaves the others waiting in a collective until the process group's timeout
 (:data:`TIMEOUT`), and then they raise too; recovery is a restart from the
@@ -36,7 +40,10 @@ last checkpoint (``--resume``).
 """
 from __future__ import annotations
 
+import multiprocessing as mp
 import os
+import socket
+import time
 from datetime import timedelta
 from typing import Dict, Optional
 
@@ -157,6 +164,39 @@ class MapKfRuntime:
             [0.0 if torch.equal(ref, t) else 1.0], device=self.device
         )
         return float(all_reduce_(bad, None, self.world)) == 0.0
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a local coordinator."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(target, ranks, args=(), deadline_s: float = 1800.0) -> None:
+    """Run ``target(rank, *args)`` in one spawned process per rank of
+    ``ranks`` and wait for all; raises, after killing the rest, when one
+    fails or the deadline passes (a rank left in a collective would wait
+    for the process group's timeout)."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args), daemon=True) for r in ranks]
+    for p in procs:
+        p.start()
+    t_end = time.monotonic() + deadline_s
+    try:
+        while True:
+            codes = [p.exitcode for p in procs]
+            if all(c == 0 for c in codes):
+                return
+            if any(c not in (None, 0) for c in codes) or time.monotonic() > t_end:
+                raise RuntimeError(f"ranks {list(ranks)} ended with exit codes {codes}"
+                                   f"{' (deadline passed)' if time.monotonic() > t_end else ''}")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
 
 
 def setup_runtime(

@@ -166,6 +166,13 @@ def kf_slice(mesh: MapKfMesh, n_pixels: int) -> KfSlice:
     )
 
 
+def map_sharded_slice(mesh: MapKfMesh, n_pixels: int) -> KfSlice:
+    """A rank's slice of the map-sharded program (``MapSegments``) on any
+    mesh, one map block included: ``kf_slice`` gives it only to more than
+    one map block."""
+    return kf_slice(mesh, n_pixels)._replace(segments=partial(MapSegments, mesh))
+
+
 def make_sharded_run_schedule(mesh: MapKfMesh):
     """A drop-in ``run_schedule`` (same arguments) for passes whose
     ``pp`` grids and ``grid_masks`` are this rank's Z blocks of grids padded

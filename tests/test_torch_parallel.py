@@ -35,7 +35,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -68,7 +67,7 @@ from niceslam_tpu_torch.core.rays import Intrinsics
 from niceslam_tpu_torch.io.datasets.synthetic import SyntheticBoxReader
 from niceslam_tpu_torch.models.decoders import tree_leaves
 from niceslam_tpu_torch.parallel.mesh import MapKfMesh
-from niceslam_tpu_torch.parallel.runtime import MapKfRuntime, setup_runtime
+from niceslam_tpu_torch.parallel.runtime import MapKfRuntime, free_port, setup_runtime
 from niceslam_tpu_torch.parallel.sharded_mapper import pad_grid_for_sharding
 from niceslam_tpu_torch.render.renderer import RenderConfig
 from niceslam_tpu_torch.slam import mapper
@@ -842,16 +841,10 @@ def test_roles_on_two_devices_equal_the_plain_run(roles):
 
 
 # ------------------------------------------------------------------- CLI
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _cli(cfg_path, out, world, n_map, frames, extra=(), deadline_s=240.0):
     """``python -m niceslam_tpu_torch`` on ``world`` CPU ranks; returns rank
     0's last stdout line. The ranks are killed at the deadline."""
-    port = _free_port()
+    port = free_port()
     common = [sys.executable, "-m", "niceslam_tpu_torch", cfg_path, "--cpu",
               "--frames", str(frames), "--set", "sync_method=async",
               "--set", "tracking.method=adam", "--set", f"parallel.n_processes={world}",

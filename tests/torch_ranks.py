@@ -12,9 +12,7 @@ JAX. The tests compute the JAX side in the parent and hand it over as numpy.
 from __future__ import annotations
 
 import contextlib
-import multiprocessing as mp
 import os
-import time
 import traceback
 from datetime import timedelta
 
@@ -27,37 +25,20 @@ TIMEOUT_S = 60
 def run_ranks(world: int, jobs, tmp, deadline_s: float = 240.0):
     """Run ``jobs`` (a list of ``(name, n_map, n_kf, payload)``) on ``world``
     spawned gloo ranks; returns ``out[job][rank]``, a dict of numpy arrays."""
+    from niceslam_tpu_torch.parallel.runtime import spawn_ranks
+
     tmp = str(tmp)
-    ctx = mp.get_context("spawn")
     init = os.path.join(tmp, f"rendezvous_{world}")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, init, jobs, tmp), daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    t_end = time.monotonic() + deadline_s
     try:
-        while True:
-            codes = [p.exitcode for p in procs]
-            if all(c == 0 for c in codes):
-                break
-            if any(c not in (None, 0) for c in codes) or time.monotonic() > t_end:
-                errs = []
-                for r in range(world):
-                    path = os.path.join(tmp, f"rank{r}.err")
-                    if os.path.exists(path):
-                        with open(path) as f:
-                            errs.append(f.read())
-                raise RuntimeError(
-                    f"ranks ended with exit codes {codes} "
-                    f"({'deadline passed' if time.monotonic() > t_end else 'a rank failed'})\n"
-                    + "\n".join(errs)
-                )
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
+        spawn_ranks(_rank_main, range(world), (world, init, jobs, tmp), deadline_s)
+    except RuntimeError as e:
+        errs = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.err")
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f.read())
+        raise RuntimeError(f"{e}\n" + "\n".join(errs)) from None
     return [
         [dict(np.load(os.path.join(tmp, f"job{k}_rank{r}.npz"))) for r in range(world)]
         for k in range(len(jobs))
