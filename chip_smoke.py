@@ -224,6 +224,18 @@ prints no result):
    checkpoint at frame 6 and a resume from it to the end (its first 7
    poses equal to the run's), the colour refine's 5 passes on the last
    frame, no lost track in either run.
+17. the diagnostics (``niceslam_tpu_torch/diagnostics/``), each through its
+   ``main`` as a user calls it, at full width (640x480) on a cut
+   (``DIAG_RUNS``: few frames, a short ``iters_first`` where the script has
+   the flag): ``saturation_probe`` with the shipped and with random
+   decoders, ``bias_probe``, ``depth_diag``, ``track_diag``, ``lag_probe``,
+   ``accuracy_probe``, ``perf_breakdown``, ``mapper_step_probe`` and
+   ``dispatch_probe``: every record with the JAX script's keys
+   (``DIAG_KEYS``) and finite numbers, K1 and K2 launched in each run (the
+   counts set to 0 before it and read after) and no packed kernel; then
+   ``saturation_probe``'s record on the card against the CPU's (plain
+   versions) on the card system's state, values within 1e-5 and the
+   gradient norm within 2e-5 relative.
 
 Phases 4, 7, 8, 9, 10, 11 (b), 12, 15 and 16 run graphed, as ``NiceSLAM``,
 ``render_image``, the mesher and ``pretrain_decoders`` do on a card; so
@@ -267,6 +279,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib
 import io
 import json
 import os
@@ -2949,6 +2962,133 @@ def phase_entry_points():
             raise AssertionError(f"kernel bench: record {r}")
 
 
+# ---------------------------------------------------------------- phase 17
+# The diagnostics (niceslam_tpu_torch/diagnostics/), each through its main at
+# full width on a cut, with the keys of the JAX script's record; the keys
+# that a record holds besides its per-section names (perf_breakdown) and
+# its stage names are listed here, flattened.
+DIAG_RUNS = (
+    ("saturation_probe", []),
+    ("saturation_probe", ["none"]),
+    ("bias_probe", []),
+    ("depth_diag", ["--frames", "6", "--iters-first", "200"]),
+    ("track_diag", []),
+    ("lag_probe", ["--frames", "6"]),
+    ("accuracy_probe", ["--frames", "6", "--iters-first", "200", "--depth-psnr"]),
+    ("perf_breakdown", ["--frames", "8", "--warm", "2"]),
+    ("mapper_step_probe", ["--reps", "2"]),
+    ("dispatch_probe", []),
+)
+DIAG_KEYS = {
+    "saturation_probe": {"middle", "color", "occ_mean", "occ_p10", "occ_p90", "alpha_mean",
+                         "frac_alpha_lt_1e-3", "frac_alpha_gt_0.999", "docc_dmiddlegrid_norm"},
+    "bias_probe": {"n", "bias_cm", "std_cm", "fit_a", "fit_b_cm", "w_sum_mean", "w_sum_min",
+                   "w_max_mean", "gt_range", "train_loss_proxy"},
+    "depth_diag": {"frame", "middle", "fine", "color", "bias_cm", "l1_cm", "p50_cm", "p90_cm"},
+    "track_diag": {"depth_var_m2", "p10", "p50", "p90", "unc_amp_p50", "depth_err_cm_at_gt",
+                   "depth_err_cm_pcts", "10", "50", "90", "99", "signed_err_cm_p50", "base",
+                   "t_err_cm_init", "t_err_cm_tracked", "loss_curve", "loss_at_init",
+                   "loss_at_tracked", "loss_at_gt"},
+    "lag_probe": {"ate_rmse_cm", "rows (k, warmstart_err, tracked_err, delta, mapped)"},
+    "accuracy_probe": {"frames", "wall_s", "ate_rmse_cm", "raw_t_err_cm", "mean", "max", "last",
+                       "rpe_t_cm", "p90", "t_err_curve_cm", "variant", "gt_camera",
+                       "decoder_train", "pretrained", "seed", "coarse", "BA", "track",
+                       "depth_l1_cm", "color_psnr_db"},
+    "perf_breakdown": {"frames", "total_s", "fps", "sections", "calls", "ms_per_call", "pct",
+                       "host_and_dispatch_s", "host_and_dispatch_pct"},
+    "mapper_step_probe": {"op", "iters", "capture_s", "wall_ms", "ms_per_iter", "value"},
+    "dispatch_probe": {"probe", "ms", "ms_per_iter"},
+}
+PERF_SECTIONS = {"track", "retrack", "overlap_sel", "frustum_masks", "map_coarse", "map_staged"}
+
+
+def diagnostic_records(out: str) -> list:
+    """A diagnostic's standard output as records: one JSON document, or one
+    per line."""
+    try:
+        return [json.loads(out)]
+    except json.JSONDecodeError:
+        return [json.loads(line) for line in out.strip().splitlines()]
+
+
+def record_keys(rec) -> set:
+    if isinstance(rec, dict):
+        return set(rec) | set().union(*(record_keys(v) for v in rec.values()))
+    if isinstance(rec, list):
+        return set().union(*(record_keys(v) for v in rec))
+    return set()
+
+
+def record_numbers(rec) -> list:
+    if isinstance(rec, dict):
+        return [x for v in rec.values() for x in record_numbers(v)]
+    if isinstance(rec, list):
+        return [x for v in rec for x in record_numbers(v)]
+    return [rec] if isinstance(rec, (int, float)) and not isinstance(rec, bool) else []
+
+
+def check_diagnostic(name: str, recs: list):
+    """The JAX script's keys and finite numbers (a record's ``null``, a
+    capture that did not happen, aside)."""
+    keys = record_keys(recs)
+    if name == "perf_breakdown":
+        sections = set(recs[0]["sections"])
+        if not ({"track", "map_staged"} <= sections <= PERF_SECTIONS):
+            raise AssertionError(f"perf_breakdown: sections {sorted(sections)}")
+        keys -= sections
+    if keys != DIAG_KEYS[name]:
+        raise AssertionError(f"{name}: keys {sorted(keys)}, not {sorted(DIAG_KEYS[name])}")
+    bad = [x for x in record_numbers(recs) if not np.isfinite(x)]
+    if bad:
+        raise AssertionError(f"{name}: non-finite numbers {bad} in {recs}")
+
+
+def saturation_card_vs_cpu():
+    """``saturation_probe``'s record on the card (K1, and K2 for the grid
+    gradient) against the CPU's (plain versions) on the card system's
+    state: values within 1e-5, the gradient norm within 2e-5 relative."""
+    from niceslam_tpu_torch.diagnostics import saturation_probe as sp
+    from niceslam_tpu_torch.models.decoders import tree_map
+
+    cfg = sp.config()
+    card = sp.build(cfg, "cuda")
+    got = sp.measure(card, sp.points(cfg, "cuda"))
+    cpu = sp.build(cfg, "cpu")
+    cpu.state.grids = {k: v.cpu() for k, v in card.state.grids.items()}
+    cpu.state.decoders = tree_map(lambda t: t.cpu(), card.state.decoders)
+    want = sp.measure(cpu, sp.points(cfg, "cpu"))
+    worst = {}
+    for stage in sp.STAGES:
+        for k, w in want[stage].items():
+            g = got[stage][k]
+            err = abs(g - w) / abs(w) if k == "docc_dmiddlegrid_norm" else abs(g - w)
+            worst[f"{stage}.{k}"] = err
+            if err > (2e-5 if k == "docc_dmiddlegrid_norm" else 1e-5):
+                raise AssertionError(f"saturation_probe card vs CPU: {stage}.{k} {g} vs {w}")
+    log(f"saturation_probe card vs CPU: largest error {max(worst.values()):.3g} "
+        f"({max(worst, key=worst.get)}; values within 1e-5, the norm 2e-5 relative)")
+
+
+def phase_diagnostics():
+    """Phase 17: every diagnostic's ``main`` on the card at full width, cut
+    (``DIAG_RUNS``): the JAX script's keys, finite numbers, the fused
+    route's kernels launched in each run (the counts set to 0 before it and
+    read after); then ``saturation_probe`` card against CPU."""
+    for name, argv in DIAG_RUNS:
+        main_fn = importlib.import_module(f"niceslam_tpu_torch.diagnostics.{name}").main
+        set_launches({})
+        t0 = time.perf_counter()
+        out, _ = run_entry_point(main_fn, argv)
+        launches = all_launches()
+        check_route_launches(f"diagnostics {name}", "fused", launches)
+        check_diagnostic(name, diagnostic_records(out))
+        log(f"diagnostics {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, "
+            f"launches {launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    saturation_card_vs_cpu()
+
+
 # ---------------------------------------------------------------- phase 16
 # The reference envelope: LONGRUN_r05.json's run of the JAX package, the
 # command line on configs/cofusion_synth849.yaml with these overrides, on the
@@ -3382,6 +3522,10 @@ def main():
     phase_envelope()
     log(f"envelope phase: {time.perf_counter() - t0:.1f} s")
     log_pool("the cut envelope (phase 16)")
+    t0 = time.perf_counter()
+    phase_diagnostics()
+    log(f"diagnostics phase: {time.perf_counter() - t0:.1f} s")
+    log_pool("the diagnostics (phase 17)")
     log(f"graph pool of the process where each phase ended (MiB): {json.dumps(POOL_READINGS)}")
     ates = [runs["fused"]["ate_cm"]] + [phase_main_path(cfg, args.frames, seed)["ate_cm"]
                                         for seed in range(1, args.seeds)]

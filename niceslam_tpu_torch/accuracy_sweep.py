@@ -147,18 +147,26 @@ def run_one(v: dict, device="cuda") -> dict:
         "variant": {k: v[k] for k in sorted(v) if k != "name"},
     }
     if v["depth_psnr"]:
-        f = reader[n - 1]
-        ro = render_image(
-            slam.state.decoders, slam.state.grids, slam.bounds, slam.scene_bound,
-            slam.intr, torch.as_tensor(gt[-1], device=device),
-            torch.as_tensor(f.depth, device=device), "color", slam.rcfg,
-        )
-        d = ro.depth.cpu().numpy()
-        m = f.depth > 0
-        out["depth_l1_cm"] = round(100 * float(np.abs(d - f.depth)[m].mean()), 3)
-        mse = float(((ro.rgb.cpu().numpy() - f.color) ** 2).mean())
-        out["color_psnr_db"] = round(-10 * np.log10(mse + 1e-12), 2)
+        l1_cm, psnr = render_check(slam, reader[n - 1], gt[-1])
+        out["depth_l1_cm"] = round(l1_cm, 3)
+        out["color_psnr_db"] = round(psnr, 2)
     return out
+
+
+def render_check(slam: NiceSLAM, frame, c2w) -> tuple:
+    """``frame`` rendered (``render_image``, colour stage) at the pose
+    ``c2w``: the depth's mean absolute error in cm over the pixels with
+    depth and the colour's PSNR in dB, unrounded."""
+    dev = slam.device
+    ro = render_image(
+        slam.state.decoders, slam.state.grids, slam.bounds, slam.scene_bound,
+        slam.intr, torch.as_tensor(c2w, device=dev),
+        torch.as_tensor(frame.depth, device=dev), "color", slam.rcfg,
+    )
+    d = ro.depth.cpu().numpy()
+    m = frame.depth > 0
+    mse = float(((ro.rgb.cpu().numpy() - frame.color) ** 2).mean())
+    return 100 * float(np.abs(d - frame.depth)[m].mean()), -10 * np.log10(mse + 1e-12)
 
 
 def main(argv=None) -> int:
