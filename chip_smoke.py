@@ -34,7 +34,14 @@ prints no result):
    as the pretraining launches it (phase 12), at its largest fine grid
    (62x36x74x32) on one batch's 8,190 occupancy points: against its plain
    version, its model (also permuted) and, with an all-zero cotangent,
-   exactly zero.
+   exactly zero. K6, the decoders' forward-mode kernel, per MLP (middle,
+   fine, color) at the GN linearization's shape (the tracking batch's
+   points, 6 tangents): its value bit-equal to its T = 0 launch's, value and
+   tangents within ``decoder_kernels.CARD_RTOL`` of its plain version (the
+   tangents but for ``KINKS`` of them), timed against the forward mode it
+   replaced (``vmap(jvp)`` of the plain MLP) in alternating rounds, its
+   bound from fp32 operations; the ``kernels`` line lists it with the fused
+   main path's launches.
 3. card vs CPU, under each route: the port on the card (kernels) against
    the port on the CPU (plain versions) on a small world with injected
    pixels: a Gauss-Newton tracking solve and the mapping loss with its
@@ -289,6 +296,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -417,6 +425,7 @@ def start_peak(tag: str):
 
 # ----------------------------------------------------------------- phase 1
 def phase_card():
+    from niceslam_tpu_torch.ops import decoder_kernels as dk
     from niceslam_tpu_torch.ops import packed_kernels as pk
     from niceslam_tpu_torch.ops import trilerp_kernels as tk
 
@@ -430,7 +439,7 @@ def phase_card():
         return lib, report, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    srcs = (tk.CSRC / "trilerp.cu", pk.SRC)
+    srcs = (tk.CSRC / "trilerp.cu", pk.SRC, dk.SRC)
     with ThreadPoolExecutor(len(srcs)) as ex:
         built = list(ex.map(timed_build, srcs))
     log(f"build: {len(srcs)} sources in parallel in {time.perf_counter() - t0:.2f} s")
@@ -606,6 +615,7 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
         log(f"{tag}: K2 launches by the gradients asked for: {k2_tally()}")
     log(f"{tag}: peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated)")
     check_route_launches(f"main path {tag}", route, launches)
+    k6_launches = check_decoder_launches(tag, slam, cfg)
     res = slam.result()
     poses = np.stack(res["est_c2w"])
     if not np.isfinite(poses).all():
@@ -631,7 +641,8 @@ def phase_main_path(cfg, n_frames: int, seed: int = 0, route: str = "fused",
         raise AssertionError(f"{tag}: the track is lost: {lost}")
     log_captures(tag, slam)
     check_keyframe_captures(tag, slam, n_pre)
-    return dict(launches=launches, slam=slam, reader=reader, ate_cm=ate_cm, dts=dts,
+    return dict(launches=launches, k6_launches=k6_launches, slam=slam, reader=reader,
+                ate_cm=ate_cm, dts=dts,
                 peak_bytes=peak, start_bytes=start_bytes, kept=kept, kept0=kept0,
                 seed=seed, route=route, n_frames=n_frames, poses=poses,
                 grids=slam.state.grids)
@@ -907,11 +918,35 @@ def k2_tally() -> dict:
 
 
 def clear_tallies():
+    from niceslam_tpu_torch.ops import decoder_kernels
     from niceslam_tpu_torch.ops.trilerp_kernels import BWD_TALLY, FWD_TALLY
 
     set_launches({})
     FWD_TALLY.clear()
     BWD_TALLY.clear()
+    decoder_kernels.reset_launches()
+
+
+def check_decoder_launches(tag: str, slam, cfg):
+    """The decoders' forward-mode kernel (K6) launched for each GN iteration
+    of the run (the system's ``track`` replays) once per MLP (middle, fine,
+    color) and evaluation of the render (two with importance samples), with
+    the value and the six pose tangents, and never otherwise; the Adam
+    tracker never launches it. Returns its launches."""
+    from niceslam_tpu_torch.ops import decoder_kernels as dk
+
+    iters = slam.timer.replays.get("track", 0) if cfg.tracking.method == "gn" else 0
+    iters *= 2 if cfg.rendering.N_importance > 0 else 1
+    by_t = Counter()
+    for (t, _n), c in dk.JVP_TALLY.items():
+        by_t[t] += c
+    log(f"{tag}: K6 launches {dk.LAUNCHES['decoder_jvp']}, by (T, N): "
+        + ", ".join(f"T={t} N={n}: {c}" for (t, n), c in sorted(dk.JVP_TALLY.items()))
+        + f"; GN iterations x evaluations {iters}")
+    want = {6: 3 * iters} if iters else {}
+    if dict(+by_t) != want or sum(by_t.values()) != dk.LAUNCHES["decoder_jvp"]:
+        raise AssertionError(f"{tag}: K6 launches by T {dict(by_t)}, expected {want}")
+    return dk.LAUNCHES["decoder_jvp"]
 
 
 def state_copy(slam) -> dict:
@@ -2187,12 +2222,15 @@ def mapping_pass_payload(cfg, run: dict, path: str, iters, routes=("fused",)):
 
 SYSTEM_RUNS = ("graphed", "graphed cut", "eager")
 # The graphed runtime-attached systems' digests at the smoke's own 8 frames
-# and mapping.iters_first 1500, each equal to the eager run's of the same
-# frames when the smoke still ran those eagerly; their eager runs are now
-# the cut (CUT) only, so the 8-frame graphed runs are held to these.
+# and mapping.iters_first 1500. The earlier ones equalled the eager run's of
+# the same frames when the smoke still ran those eagerly; their eager runs
+# are now the cut (CUT) only, so the 8-frame graphed runs are held to these.
+# Since the GN linearization's decoders run K6 (its sums in another order
+# than the plain MLP's GEMMs) they are those of the K6 tree's graphed runs,
+# whose cuts equal their eager runs bit for bit.
 GRAPHED_SYSTEM_DIGESTS = {
-    "1x2": "0d53a360d19cd76a3b6c6c24a75843bb238f5450",
-    "2x1": "c3b496e537a9a4b50ad3ac7fa2a98e24cc37650d",
+    "1x2": "34393ed79ddf685b93796a171b372b4593d88cb3",
+    "2x1": "c95fcc4f78a25a51ff9c6a11031748e91d09a4c7",
 }
 GRAPHED_SYSTEM_AT = (8, 1500)
 
@@ -3552,6 +3590,19 @@ def main():
                 "name": name, "route": "cuda", "source": sources[route],
                 "replaces": f"niceslam_tpu/ops/pallas_trilerp.py:{pallas_call_line[name]}",
                 "launches": runs[route]["launches"][name], "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
+    # K6 per MLP at the GN linearization's shape; its launches are the
+    # three MLPs' on the fused main path; its library_ms is the forward mode
+    # it replaced (vmap(jvp) of the plain MLP), no single call.
+    for r in rows:
+        if r["name"] == "decoder_jvp":
+            kernels.append({
+                "name": "decoder_jvp", "case": r["case"], "route": "cuda",
+                "source": "niceslam_tpu_torch/csrc/decoder_jvp.cu",
+                "replaces": None, "launches": runs["fused"]["k6_launches"],
+                "max_abs_err": r["max_abs_err"], "tangent_share_off": r["tangent_share_off"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })

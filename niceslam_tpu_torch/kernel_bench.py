@@ -37,12 +37,15 @@ launch drops out as the dispatch does there. With ``--cpu`` each op runs
 K times eagerly between host clocks, a CPU time. A kernel that fails to
 build or to launch raises: nothing is recorded and passed over.
 
-Kernel cases (:func:`kernel_rows`, card only): K1-K5 at the main path's
+Kernel cases (:func:`kernel_rows`, card only): K1-K6 at the main path's
 shapes against their plain versions and, in alternating rounds, the
-library call that computes the same function, with each kernel's bound;
-``chip_smoke.py`` prints its kernel table from them.
+library call that computes the same function (for K6, the decoders' forward
+mode that it replaces: ``vmap(jvp)`` of the plain MLP), with each kernel's
+bound; ``chip_smoke.py`` prints its kernel table from them. ``--decoders``
+runs :func:`decoder_rows` alone: K6 per MLP at 48,000 points (the bench
+stream's GN batch) and 6 tangents.
 
-    python -m niceslam_tpu_torch.kernel_bench [--pallas] [--iters 8] [--cpu]
+    python -m niceslam_tpu_torch.kernel_bench [--pallas] [--decoders] [--iters 8] [--cpu]
 """
 from __future__ import annotations
 
@@ -65,7 +68,8 @@ from .core.compositing import raw_to_outputs
 from .eval.mesher import lattice_points
 from .grid.hierarchy import GridConfig, adjust_bound, grid_shape, init_grids
 from .io.datasets.synthetic import SyntheticBoxReader
-from .models.decoders import DecoderConfig, init_decoders, nice_forward
+from .models.decoders import DecoderConfig, _mlp_forward, init_decoders, nice_forward, tree_map
+from .ops import decoder_kernels as dk
 from .ops import fixed_point as fp
 from .ops import packed_kernels as pk
 from .ops import trilerp_kernels as tk
@@ -556,7 +560,8 @@ def k1_rows(case):
 
 
 def kernel_rows(cfg):
-    """Parity, time and bound of K1-K5 at the main path's shapes."""
+    """Parity, time and bound of K1-K5 at the main path's shapes, and of K6
+    at the GN linearization's (the tracking batch's points, 6 tangents)."""
     log(f"main-path grid shapes [Z,Y,X,C]: {main_path_grid_shapes(cfg)}")
     rows = []
     cases = kernel_cases(cfg)
@@ -603,6 +608,8 @@ def kernel_rows(cfg):
         row("trilerp_bwd", max_abs_err=err, plain_ms=plain, **times, bound_ms=bms, bound_by=by)
         rows += packed_kernel_rows(case, with_table=uniform)
     rows += k2_dgrid_only_rows()
+    n_track = cfg.tracking.pixels * (cfg.rendering.N_samples + cfg.rendering.N_surface)
+    rows += decoder_rows(n_track)
     log("library_ms of corner_table: null, no single PyTorch call builds the "
         "packed table (the plain version is six concatenations)")
     for r in rows:
@@ -787,16 +794,126 @@ def mapping_batch_points(slam, frame, c2w, cfg, gen):
 
 
 # ------------------------------------------------------------------ main
+def decoder_macs(c_in: int, out_dim: int, T: int) -> int:
+    """Multiply-adds per point of one MLP's value and ``T`` tangents, as K6
+    computes them: the value through every layer (the feature term at
+    ``c_in`` channels); a tangent through every layer without the detached
+    half of the feature (``c_in - 32``) and with the embedding's ``p' @ B``
+    and ``cos * (p' @ B)``."""
+    E, H = dk.EMBED, dk.KERNEL_WIDTH
+    dense = E * H + 3 * H * H + (E + H) * H + H * out_dim
+    value = 3 * E + dense + 5 * c_in * H
+    tangent = 4 * E + dense + 5 * H * H
+    return value + T * tangent
+
+
+def graphed(fn) -> torch.cuda.CUDAGraph:
+    """``fn`` captured once (after a warm-up call) as a CUDA graph."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def decoder_rows(n: int = N_POINTS, T: int = 6, seed: int = 0):
+    """K6 per MLP (middle, fine, color) at ``n`` points and ``T`` tangents,
+    as kernel rows: the value of the T-tangent launch must equal the T = 0
+    launch's bit for bit, the value be within ``dk.CARD_RTOL`` of the plain
+    version on the card and the tangents too but for ``dk.KINKS`` of them
+    (else it raises); in 15 alternating rounds the kernel against
+    ``vmap(jvp)`` of the plain MLP, the decoders' Jacobian before K6 and no
+    single call (``library_ms``), each a CUDA graph of one call; the plain
+    version's time, the T = 0 launch's (``value_ms``) and the fp32 bound
+    beside them. Card only."""
+    gen = torch.Generator().manual_seed(seed)
+    params = init_decoders(DecoderConfig(), gen=gen, device="cpu")
+    lo, hi = np.asarray(BOUND, np.float32)[:, 0], np.asarray(BOUND, np.float32)[:, 1]
+    pts = torch.from_numpy(lo) + torch.from_numpy(hi - lo) * torch.rand((n, 3), generator=gen)
+    rows = []
+    for level in ("middle", "fine", "color"):
+        name = f"{level} N={n} T={T}"
+        p = params[level]
+        # Biases as a trained decoder has them (init leaves them 0).
+        for part in p["linears"] + p["fc_c"] + [p["out"]]:
+            part["b"] = 0.1 * torch.randn(part["b"].shape, generator=gen)
+        p = tree_map(lambda t: t.cuda(), p)
+        det_w = 32 if level == "fine" else 0
+        feat = 0.3 * torch.randn((n, 32), generator=gen)
+        det = 0.3 * torch.randn((n, det_w), generator=gen) if det_w else None
+        pdot = 0.1 * torch.randn((T, n, 3), generator=gen)
+        fdot = torch.randn((T, n, 32), generator=gen)
+        card = [x.cuda() if x is not None else None for x in (pts, pdot, feat, fdot, det)]
+        w = dk.pack_weights(p)
+        O = p["out"]["w"].shape[1]
+        x, xd, f, fd, dt = card
+        val, tan = dk.decoder_jvp(w, x, xd, f, fd, dt, 32, O)
+        val0, _ = dk.decoder_jvp(w, x, xd[:0], f, fd[:0], dt, 32, O)
+        pval, ptan = dk.decoder_jvp_plain(w, x, xd, f, fd, dt, 32, O)
+        torch.cuda.synchronize()
+        if not torch.equal(val, val0):
+            raise AssertionError(f"decoder_jvp[{name}]: the value of the T={T} launch "
+                                 f"differs from the T=0 launch's ({max_err(val, val0):.3e})")
+        check_close(f"decoder_jvp[{name}] value", val, pval, dk.CARD_RTOL,
+                    dk.CARD_RTOL * float(pval.abs().max()))
+        kinks = dk.tangents_off(tan, ptan)
+        if kinks > dk.KINKS:
+            raise AssertionError(f"decoder_jvp[{name}]: {kinks:.3e} of the tangents off "
+                                 f"their plain version by more than {dk.CARD_RTOL}")
+
+        def plain_mlp(a, b):
+            return _mlp_forward(p, a, b if dt is None else torch.cat([b, dt], -1))
+
+        def jacfwd_mlp():
+            return torch.func.vmap(
+                lambda u, v: torch.func.jvp(plain_mlp, (x, f), (u, v)))(xd, fd)
+
+        # Each side one CUDA graph of one call, as the GN program runs it.
+        kernel = graphed(lambda: dk.decoder_jvp(w, x, xd, f, fd, dt, 32, O))
+        yardstick = graphed(jacfwd_mlp)
+        times = paired_ms(kernel.replay, yardstick.replay)
+        plain = device_ms(graphed(
+            lambda: dk.decoder_jvp_plain(w, x, xd, f, fd, dt, 32, O)).replay)
+        value_ms = device_ms(graphed(
+            lambda: dk.decoder_jvp(w, x, xd[:0], f, fd[:0], dt, 32, O)).replay)
+        flops = 2.0 * n * decoder_macs(32 + det_w, O, T)
+        nbytes = 4.0 * n * ((1 + T) * (3 + 32 + O) + det_w) + 4.0 * w.numel()
+        bms, by = bound_ms(nbytes, flops)
+        rows.append(dict(
+            name="decoder_jvp", case=name, points="uniform", level=level, n=n, T=T,
+            max_abs_err=max(max_err(val, pval), max_err(tan, ptan)), **times,
+            plain_ms=plain, bound_ms=bms, bound_by=by, value_ms=value_ms,
+            gflop=flops / 1e9, tflops=flops / (times["ms"] * 1e9),
+            tangent_scale=float(ptan.abs().max()), tangent_share_off=kinks,
+            extra=f"library: vmap(jvp) of the plain MLP; T=0 launch {value_ms:.4f} ms; "
+                  f"{flops / (times['ms'] * 1e9):.1f} TFLOP/s; tangents off "
+                  f"{kinks:.2e} (at most {dk.KINKS})"))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pallas", action="store_true",
                     help="also the Pallas section: K1, K3-K5 beside their XLA twins")
+    ap.add_argument("--decoders", action="store_true",
+                    help="only K6 (decoder_rows): one JSON line per MLP, card only")
     ap.add_argument("--iters", type=int, default=8, help="graph replays timed per op")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
     args = ap.parse_args(argv)
     device = torch.device("cpu" if args.cpu else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --cpu to run the ops on the CPU")
+    if args.decoders:
+        if device.type != "cuda":
+            raise RuntimeError("--decoders times K6 on the card; it has no CPU mode")
+        log(f"# device: {torch.cuda.get_device_name(device)}")
+        for row in decoder_rows():
+            print(json.dumps(row), flush=True)
+        return 0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     peaks = roofline.device_peaks(name)
     log(f"# device: {name}")

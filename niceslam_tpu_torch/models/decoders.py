@@ -13,14 +13,22 @@ Parameters are a plain nested dict of tensors with the JAX package's layout
 - :func:`nice_forward` routes by stage: coarse -> coarse occ; middle ->
   middle occ; fine -> middle + fine residual occ; color -> RGB with occ =
   middle + fine.
+
+Inside :func:`forward_mode_decoders` (entered by the Gauss-Newton tracker
+around its ``jacfwd``) the middle, fine and color MLPs run through the
+forward-mode op of ``ops/decoder_kernels.py`` (K6 on the card): the same
+function, with the value and the tangents of each MLP computed on chip. Every
+other caller runs the plain MLP below.
 """
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from ..ops.decoder_kernels import decoder_mlp, deferred
 from ..ops.trilinear import sample_grid
 
 Params = Dict[str, Any]
@@ -29,6 +37,7 @@ EMBEDDING_SIZE = 93
 FOURIER_SCALE = 25.0
 N_BLOCKS = 5
 SKIPS = (2,)
+_FORWARD_MODE = False
 
 
 class DecoderConfig(NamedTuple):
@@ -124,6 +133,36 @@ def _mlp_forward(params, pts, feat):
     return _dense(params["out"], h)
 
 
+@contextmanager
+def forward_mode_decoders():
+    """Run the middle, fine and color MLPs of the code inside through
+    :func:`~..ops.decoder_kernels.decoder_mlp`: each call's value is written
+    by its jvp (``torch.func.jacfwd``), one kernel launch an MLP. Every call inside must be differentiated in forward mode: the exit
+    raises if one was not. The plain MLP comes back on exit, also on an
+    exception."""
+    global _FORWARD_MODE
+    prev, pending = _FORWARD_MODE, deferred()
+    _FORWARD_MODE = True
+    try:
+        yield
+    finally:
+        _FORWARD_MODE = prev
+    if deferred() != pending:
+        raise RuntimeError("a decoder call inside forward_mode_decoders was not "
+                           "differentiated in forward mode: its value was never written")
+
+
+def _mlp(params, pts, feat, detached=None):
+    """One MLP at ``pts`` with the feature ``cat(feat, detached)``, where
+    ``detached`` (the fine decoder's middle feature, or None) carries no
+    tangent."""
+    if _FORWARD_MODE:
+        return decoder_mlp(params, pts, feat, detached)
+    if detached is not None:
+        feat = torch.cat([feat, detached], dim=-1)
+    return _mlp_forward(params, pts, feat)
+
+
 def _mlp_no_xyz_forward(params, feat):
     h = feat
     for i, lin in enumerate(params["linears"]):
@@ -141,10 +180,9 @@ def _geo_occ(params, grids, bounds, pts):
     """fine + middle residual occupancy with the middle feature sampled ONCE:
     the middle decoder reads it live, the fine decoder detached."""
     mid_feat = _feat(grids, bounds, "middle", pts)
-    mid_occ = _mlp_forward(params["middle"], pts, mid_feat)[..., 0]
+    mid_occ = _mlp(params["middle"], pts, mid_feat)[..., 0]
     own = _feat(grids, bounds, "fine", pts)
-    feat = torch.cat([own, mid_feat.detach()], dim=-1)
-    fine_occ = _mlp_forward(params["fine"], pts, feat)[..., 0]
+    fine_occ = _mlp(params["fine"], pts, own, mid_feat.detach())[..., 0]
     return fine_occ + mid_occ
 
 
@@ -174,13 +212,11 @@ def nice_forward(
             params["coarse"], _feat(grids, bounds, "coarse", pts)
         )[..., 0]
     elif stage == "middle":
-        occ = _mlp_forward(
-            params["middle"], pts, _feat(grids, bounds, "middle", pts)
-        )[..., 0]
+        occ = _mlp(params["middle"], pts, _feat(grids, bounds, "middle", pts))[..., 0]
     elif stage == "fine":
         occ = _geo_occ(params, grids, bounds, pts)
     elif stage == "color":
-        raw = _mlp_forward(params["color"], pts, _feat(grids, bounds, "color", pts))
+        raw = _mlp(params["color"], pts, _feat(grids, bounds, "color", pts))
         occ = _geo_occ(params, grids, bounds, pts)
         return torch.cat([raw[:, :3], occ[:, None]], dim=-1)
     else:

@@ -73,7 +73,8 @@ capture mode, keyed on the device like every program.
   segments), so graphs with small buffers captured before one with large
   ones still add to it.
 - A replay runs no Python, so the kernels' launch counters
-  (``ops/trilerp_kernels.COUNTERS``, ``ops/packed_kernels.COUNTERS``) get
+  (``ops/trilerp_kernels.COUNTERS``, ``ops/packed_kernels.COUNTERS``,
+  ``ops/decoder_kernels.COUNTERS``) get
   each graph's launches, as its capture counted them, once per replay; the
   warm-up's launches are taken out again.
 - Inside a frame of ``NiceSLAM.step`` (``utils/profiling.py``) a run counts
@@ -101,7 +102,7 @@ import torch
 
 from ..core.transfer import to_device
 from ..models.decoders import tree_leaves, tree_map
-from ..ops import packed_kernels, trilerp_kernels
+from ..ops import decoder_kernels, packed_kernels, trilerp_kernels
 from ..ops.trilinear import get_sampler_route
 from ..utils.profiling import Marks, count, note_marks, span, unmarked
 from . import keyframes as kf_mod
@@ -126,7 +127,7 @@ from .mapper import (
 )
 from .tracker import TrackConfig, new_solve_state, solve_result, start_solve, track_iteration
 
-_COUNTERS = (trilerp_kernels.COUNTERS, packed_kernels.COUNTERS)
+_COUNTERS = (trilerp_kernels.COUNTERS, packed_kernels.COUNTERS, decoder_kernels.COUNTERS)
 _LIBCUDA = None
 _SHARED: Dict[bool, "Programs"] = {}
 _CARDS: Dict[torch.device, "CardGraphs"] = {}

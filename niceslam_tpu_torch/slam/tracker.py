@@ -4,9 +4,11 @@
 FRESH pixel batch; residuals are metric depth + color errors at the current
 twist ``xi`` (a local se(3) perturbation of the warm start); the Jacobian
 comes from ``torch.func.jacfwd`` of the whole render (6 tangents, vmapped,
-through the sampler's ``jvp``/``vmap`` rules); IRLS Huber weights on the
-uncertainty-normalized errors; the 10 x median dynamic-pixel rule and the
-absolute depth gate with its 80 %-masked fallback; a motion-model prior,
+through the sampler's ``jvp``/``vmap`` rules and the decoders' forward-mode
+op, ``models/decoders.forward_mode_decoders``: one K6 launch an MLP); IRLS
+Huber weights on the uncertainty-normalized errors; the 10 x median
+dynamic-pixel rule and the absolute depth gate with its 80 %-masked
+fallback; a motion-model prior,
 relative Levenberg-Marquardt damping, an optional scalar depth-offset
 nuisance column, and a per-iteration step clip. The solve returns the FINAL
 iterate.
@@ -35,6 +37,7 @@ import torch
 
 from ..core.pose import camera_from_tensor, se3_exp, tensor_from_camera, to_homogeneous
 from ..core.rays import Intrinsics, draw_pixels, pixel_dirs, sample_rays
+from ..models.decoders import forward_mode_decoders
 from ..render.renderer import RenderConfig, render_rays
 from ..utils.profiling import unmarked
 from .mapper import adam_direction, adam_moments_, bias_corrections, stack_draws
@@ -111,6 +114,31 @@ def gn_prior(cfg: TrackConfig, device) -> torch.Tensor:
     ]))
 
 
+def gn_linearize(
+    params, grids, bounds, scene_bound, intr: Intrinsics, init: torch.Tensor,
+    xi: torch.Tensor, i: torch.Tensor, j: torch.Tensor, gt_d: torch.Tensor,
+    rcfg: RenderConfig,
+):
+    """The color-stage render of pixels ``(i, j)`` at twist ``xi`` and its
+    Jacobian in ``xi``: ``(Jd [N, 6], Jc [N, 3, 6], depth, rgb, depth_var)``.
+    ``torch.func.jacfwd`` pushes the six tangents through the render; the
+    decoders take their forward-mode op (:func:`forward_mode_decoders`)."""
+    dirs_cam = pixel_dirs(intr, i.to(torch.float32), j.to(torch.float32))
+
+    def render_at(x):
+        T = se3_exp(x) @ init
+        rays_d = dirs_cam @ T[:3, :3].T
+        rays_o = T[:3, 3].expand(rays_d.shape)
+        out = render_rays(
+            params, grids, bounds, scene_bound, rays_o, rays_d, gt_d, "color", rcfg
+        )
+        return (out.depth, out.rgb), (out.depth, out.rgb, out.depth_var)
+
+    with torch.no_grad(), forward_mode_decoders():
+        (Jd, Jc), (d, rgb, var) = torch.func.jacfwd(render_at, has_aux=True)(xi)
+    return Jd, Jc, d, rgb, var
+
+
 def gn_step(
     params, grids, bounds, scene_bound, intr: Intrinsics,
     color: torch.Tensor, depth: torch.Tensor, init: torch.Tensor,
@@ -124,22 +152,11 @@ def gn_step(
     """
     n = i.shape[0]
     dev = init.device
-    dirs_cam = pixel_dirs(intr, i.to(torch.float32), j.to(torch.float32))
     gt_d = depth[j, i]
     gt_c = color[j, i]
     valid = (gt_d > 0).to(torch.float32)
-
-    def render_at(x):
-        T = se3_exp(x) @ init
-        rays_d = dirs_cam @ T[:3, :3].T
-        rays_o = T[:3, 3].expand(rays_d.shape)
-        out = render_rays(
-            params, grids, bounds, scene_bound, rays_o, rays_d, gt_d, "color", rcfg
-        )
-        return (out.depth, out.rgb), (out.depth, out.rgb, out.depth_var)
-
-    with torch.no_grad():
-        (Jd, Jc), (d, rgb, var) = torch.func.jacfwd(render_at, has_aux=True)(xi)
+    Jd, Jc, d, rgb, var = gn_linearize(
+        params, grids, bounds, scene_bound, intr, init, xi, i, j, gt_d, rcfg)
     mark(1)
     Jc = Jc.reshape(n * 3, 6)  # [N, 3, 6] -> [3N, 6]
 

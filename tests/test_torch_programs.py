@@ -33,6 +33,7 @@ from niceslam_tpu_torch.core import rays as rays_mod
 from niceslam_tpu_torch.core.pose import tensor_from_camera
 from niceslam_tpu_torch.eval import mesher
 from niceslam_tpu_torch.models.decoders import nice_forward, tree_leaves, tree_map
+from niceslam_tpu_torch.ops import decoder_kernels as dk
 from niceslam_tpu_torch.ops import packed_kernels as pk
 from niceslam_tpu_torch.ops import trilerp_kernels as tk
 from niceslam_tpu_torch.render.renderer import render_image, render_rays
@@ -335,7 +336,8 @@ def test_capture_needs_a_card():
 # ------------------------------------------------------------ launch counts
 def test_replays_add_the_launches_their_capture_counted():
     """A capture's launch delta, added for 7 replays, gives 7 times every
-    counter it moved (K1 by variant, K2 by gradients, K4), and restoring a
+    counter it moved (K1 by variant, K2 by gradients, K4, K6 by tangents),
+    and restoring a
     reading takes out what was counted after it."""
     saved = programs.launch_counts()
     try:
@@ -348,15 +350,19 @@ def test_replays_add_the_launches_their_capture_counted():
         tk.LAUNCHES["trilerp_bwd"] += 2
         tk.BWD_TALLY[True, False] += 2
         pk.LAUNCHES["gather_rows"] += 1
+        dk.LAUNCHES["decoder_jvp"] += 3
+        dk.JVP_TALLY[6, 48000] += 3
         delta = programs.launch_delta(programs.launch_counts(), before)
         programs.restore_counts(before)
         assert tk.LAUNCHES == {"trilerp_fwd": 1, "trilerp_bwd": 0}
         assert not tk.FWD_TALLY and not tk.BWD_TALLY and not any(pk.LAUNCHES.values())
+        assert dk.LAUNCHES == {"decoder_jvp": 0} and not dk.JVP_TALLY
         programs.add_replays(delta, 7)
         assert tk.LAUNCHES == {"trilerp_fwd": 22, "trilerp_bwd": 14}
         assert dict(tk.FWD_TALLY) == {("vector", False, 48000): 21}
         assert dict(tk.BWD_TALLY) == {(True, False): 14}
         assert pk.LAUNCHES == {"corner_table": 0, "gather_rows": 7, "scatter_corners": 0}
+        assert dk.LAUNCHES == {"decoder_jvp": 21} and dict(dk.JVP_TALLY) == {(6, 48000): 21}
     finally:
         programs.restore_counts(saved)
 
