@@ -8,20 +8,21 @@ pixel generator's state before the call and keeps references to the call's
 inputs and outputs (the system replaces its published map and never writes
 it in place, so a reference keeps what the call read). It counts every
 solve and every mapping row, and while ``on`` it keeps a sample drawn from
-the seed: ``k_solves`` solves and one mapping event (its coarse and staged
-passes), each uniformly over the window's, by reservoir sampling. Nothing
-it does waits for the card.
+the seed: ``k_solves`` solves and one mapping event (all its passes), each
+uniformly over the window's, by reservoir sampling. Nothing it does waits
+for the card.
 
 :func:`reference_answers` recomputes each sampled answer from the same
 state: the reference draws the same pixels from the recorded generator
-state, works the level bounds, frustum masks and learning rates out from
-the configuration, and starts from the map the call read (the program's
-state: the reference follows the run step by step). :func:`gaps` turns the
-two sides into the numbers that are compared:
+state and hands them to the configuration's model family
+(``benchmark/families``), whose plain reference works the bounds, masks and
+learning rates out from the configuration and starts from the map the call
+read (the program's state: the reference follows the run step by step).
+:func:`gaps` turns the two sides into the numbers that are compared:
 
 - ``start_gap``: the largest difference between the map the system starts
-  from and the one the reference builds from the seed and the decoder file
-  (exact: limit 0);
+  from and the one the family's reference builds from the seed and its
+  files (exact: limit 0);
 - ``track_loss_gap``: the largest relative gap of a sampled solve's robust
   loss at its first :data:`LOSS_ROWS` iterations (the render at the warm
   start, then the first Gauss-Newton steps);
@@ -39,16 +40,18 @@ two sides into the numbers that are compared:
 - ``map_change_gap``: over the sampled passes, the worst parameter group's
   gap between the norms of its change over the whole pass, against the
   reference's norm of that group or of the median group, whichever is
-  larger. The groups are NICE-SLAM's optimiser groups: each grid level, the
-  trained decoders, the window cameras. Groups whose first gradient in the
-  reference is under a thousandth of the median group's are left out.
+  larger. The groups are the family's optimiser groups (for NICE-SLAM: each
+  grid level, the trained decoders, the window cameras). Groups whose first
+  gradient in the reference is under a thousandth of the median group's are
+  left out.
 
 What the reference runs is worked out from the configuration and the frame
 index, never read from the program: which frames map, the passes of an
-event (the coarse pass, then the staged pass), each pass's iterations and
-stage split, its learning-rate factor, whether it adjusts the window's
-cameras (bundle adjustment, BA) and which of them stay pinned. Three exact
-numbers (limit 0) hold the program to that schedule and to its own state:
+event (the family's: for NICE-SLAM the coarse pass, then the staged pass),
+each pass's iterations and stage split, its learning-rate factor, whether
+it adjusts the window's cameras (bundle adjustment, BA) and which of them
+stay pinned. Three exact numbers (limit 0) hold the program to that
+schedule and to its own state:
 
 - ``schedule_gap``: over every frame of the window, the calls the program
   made (each solve with its loss rows; each pass with its stages, rows,
@@ -180,18 +183,6 @@ def tf32(on: bool):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
-def trained_decoders(m: dict) -> List[str]:
-    """The decoder levels a pass trains with the shipped (frozen) decoders:
-    fine unless ``fix_fine``, colour unless ``fix_color``, where some stage
-    gives them a learning rate."""
-    lrs = [m[f"stage_{s}"]["decoders_lr"] for s in ("coarse", "middle", "fine", "color")]
-    out = []
-    for lvl, fixed in (("fine", m["fix_fine"]), ("color", m["fix_color"])):
-        if not fixed and any(lr != 0 for lr in lrs):
-            out.append(lvl)
-    return out
-
-
 def _is_mapping_frame(m: dict, idx: int) -> bool:
     return idx == 0 or idx < m["bootstrap_frames"] or idx % m["every_frame"] == 0
 
@@ -214,11 +205,13 @@ def _runs(stages: List[str]) -> tuple:
     return tuple((st, n) for st, n in out)
 
 
-def expected_passes(cfg: dict, idx: int, force: bool = False) -> List[dict]:
+def expected_passes(cfg: dict, fam, idx: int, force: bool = False) -> List[dict]:
     """The mapping passes the configuration runs at frame ``idx`` (not the
-    first, on a stream with no last frame): the coarse pass when the
-    configuration has one, then the staged pass; with ``force`` those it
-    would run there were ``idx`` a mapping frame."""
+    first, on a stream with no last frame), as the family ``fam`` plans an
+    event (for NICE-SLAM the coarse pass when the configuration has one,
+    then the staged pass), each with its stage runs (``stages``) and the
+    keyframes the store holds (``kf``); with ``force`` those it would run
+    there were ``idx`` a mapping frame."""
     m = cfg["mapping"]
     if not force and (idx == 0 or not _is_mapping_frame(m, idx)):
         return []
@@ -228,25 +221,18 @@ def expected_passes(cfg: dict, idx: int, force: bool = False) -> List[dict]:
     admitted = keyframes_before(m, idx)
     # The keyframe store keeps the newest ``max_keyframes``.
     kf = admitted[-m["max_keyframes"]:]
-    out = []
-    if cfg["coarse"]:
-        out.append(dict(coarse=True, iters=m["iters"], lr_factor=float(m["lr_factor"]),
-                        ba=False, kf=kf))
-    out.append(dict(coarse=False, iters=iters, lr_factor=float(m["lr_factor"]),
-                    ba=bool(m["BA"]) and len(admitted) > m["BA_min_keyframes"], kf=kf))
+    out = fam.passes(cfg, iters, len(admitted))
     for p in out:
-        p["stages"] = _runs(ref_mapper.stage_plan(p["iters"], p["coarse"],
-                                                  m["middle_iter_ratio"],
-                                                  m["fine_iter_ratio"]))
+        p["stages"], p["kf"] = _runs(p["plan"]), kf
     return out
 
 
-def expected_calls(cfg: dict, idx: int) -> List[tuple]:
+def expected_calls(cfg: dict, fam, idx: int) -> List[tuple]:
     """Frame ``idx``'s calls in :attr:`Recorder.calls`' form: the pose solve
     (unless the poses are given), the mapping passes, the re-track solve."""
     m, t = cfg["mapping"], cfg["tracking"]
     solve = ("solve", idx, t["iters"])
-    passes = expected_passes(cfg, idx)
+    passes = expected_passes(cfg, fam, idx)
     out = [] if t["gt_camera"] or idx == 0 else [solve]
     out += [("pass", idx, p["stages"], p["iters"], p["lr_factor"], p["ba"]) for p in passes]
     if passes and m["retrack"] and not t["gt_camera"]:
@@ -254,14 +240,14 @@ def expected_calls(cfg: dict, idx: int) -> List[tuple]:
     return out
 
 
-def _pass_spec(cfg: dict, p: dict, k: int) -> dict:
+def _pass_spec(cfg: dict, fam, p: dict, k: int) -> dict:
     """What the configuration makes of a sampled event's ``k``-th pass (a
     pass the schedule has not is :func:`schedule_gap`'s to count)."""
-    exp = expected_passes(cfg, p["frame"], force=True)
+    exp = expected_passes(cfg, fam, p["frame"], force=True)
     return exp[min(k, len(exp) - 1)]
 
 
-def schedule_gap(rec: Recorder, cfg: dict, frames) -> int:
+def schedule_gap(rec: Recorder, cfg: dict, fam, frames) -> int:
     """The window's calls that differ from the configuration's schedule for
     ``frames``, are missing or are extra."""
     made: Dict[int, List[tuple]] = {}
@@ -269,12 +255,12 @@ def schedule_gap(rec: Recorder, cfg: dict, frames) -> int:
         made.setdefault(c[1], []).append(c)
     gap = 0
     for idx in frames:
-        want, got = expected_calls(cfg, idx), made.pop(idx, [])
+        want, got = expected_calls(cfg, fam, idx), made.pop(idx, [])
         gap += sum(a != b for a, b in zip(want, got)) + abs(len(want) - len(got))
     return gap + sum(len(v) for v in made.values())
 
 
-def window_gap(rec: Recorder, cfg: dict, frame_of) -> tuple:
+def window_gap(rec: Recorder, cfg: dict, fam, frame_of) -> tuple:
     """``(gap, fixed)``: the count of window faults of the sampled event's
     passes (see the module's text) and each pass's pinned set as the
     configuration has it. ``frame_of(j)`` is the stream's ``(color, depth)``
@@ -282,7 +268,7 @@ def window_gap(rec: Recorder, cfg: dict, frame_of) -> tuple:
     m = cfg["mapping"]
     gap, fixed_all = 0, []
     for k, p in enumerate(rec.sampled_event):
-        e = _pass_spec(cfg, p, k)
+        e = _pass_spec(cfg, fam, p, k)
         valid = p["valid"]
         n = int(valid.sum())
         gap += int(len(valid) != m["mapping_window_size"]) + int(not valid[:n].all())
@@ -331,16 +317,17 @@ def chain_gap(rec: Recorder) -> float:
     return gap
 
 
-def start_gap(cfg: dict, seed: int, grids0: Dict[str, torch.Tensor], dec0, npz: str) -> float:
+def start_gap(cfg: dict, fam, seed: int, grids0: Dict[str, torch.Tensor], dec0,
+              root) -> float:
     """Largest difference between the map the system starts from and the
-    reference's: grids from the seed, decoders from the file."""
-    ref = R.init_grids(cfg["bound"], cfg["grid_len"], cfg["model"]["c_dim"],
-                       cfg["model"]["coarse_bound_enlarge"], seed)
+    one the family ``fam`` builds from the seed and its files under
+    ``root``."""
+    ref, ref_dec = fam.initial_map(cfg, seed, root)
     gap = 0.0
     for lvl, g in ref.items():
         p = grids0[lvl].detach().cpu()
         gap = max(gap, float("inf") if p.shape != g.shape else float((p - g).abs().max()))
-    dec = dict(R.leaves(R.load_npz_decoders(npz, "cpu")))
+    dec = dict(R.leaves(ref_dec))
     for path, leaf in R.leaves(dec0):
         p = leaf.detach().cpu()
         r = dec.get(path)
@@ -349,16 +336,14 @@ def start_gap(cfg: dict, seed: int, grids0: Dict[str, torch.Tensor], dec0, npz: 
     return gap
 
 
-def reference_answers(rec: Recorder, cfg: dict, device, fixed: List[np.ndarray],
+def reference_answers(rec: Recorder, cfg: dict, fam, device, fixed: List[np.ndarray],
                       use_tf32: bool = False, half_batch: bool = False) -> dict:
-    """The reference's answer to every sampled solve and pass, each pass on
-    the schedule and pinned set (``fixed``, from :func:`window_gap`) that the
-    configuration gives it; with ``half_batch`` a planted fault: each
-    iteration uses the first half of its pixels, its loss doubled."""
+    """The family's reference answer to every sampled solve and pass, each
+    pass on the schedule and pinned set (``fixed``, from :func:`window_gap`)
+    that the configuration gives it; with ``half_batch`` a planted fault:
+    each iteration uses the first half of its pixels, its loss doubled."""
     cam = R.camera(cfg["cam"])
-    r, t, m = cfg["rendering"], cfg["tracking"], cfg["mapping"]
-    sb, bounds = R.level_bounds(cfg["bound"], cfg["grid_len"]["bound_divisable"],
-                                cfg["model"]["coarse_bound_enlarge"], device)
+    t, m = cfg["tracking"], cfg["mapping"]
     out = {"solves": [], "passes": []}
     with tf32(use_tf32):
         for s in rec.sampled_solves:
@@ -368,43 +353,25 @@ def reference_answers(rec: Recorder, cfg: dict, device, fixed: List[np.ndarray],
                                      t["ignore_edge_W"], device)
             if half_batch:
                 draws = [(i[:len(i) // 2], j[:len(j) // 2]) for i, j in draws]
-            pose, losses = ref_tracker.gn_solve(
-                R.tree_to(s["decoders"], device), R.tree_to(s["grids"], device), bounds, sb,
-                cam, s["color"], s["depth"], s["init"].to(device), draws, t,
-                r["N_samples"], r["N_surface"])
+            pose, losses = fam.solve(cfg, s, draws, device)
             out["solves"].append((pose, losses * (2.0 if half_batch else 1.0)))
         for k, p in enumerate(rec.sampled_event):
-            e = _pass_spec(cfg, p, k)
+            e = _pass_spec(cfg, fam, p, k)
             gen = torch.Generator(device=device)
             gen.set_state(p["gen"])
             draws = ref_mapper.draw(gen, p["valid"], m["pixels"], e["iters"], cam, device)
             if half_batch:
                 draws = [tuple(x[:len(x) // 2] for x in d) for d in draws]
-            out["passes"].append(ref_mapper.map_pass(
-                p["grids"], p["decoders"], p["cams"], p["poses"], p["colors"], p["depths"],
-                p["valid"], fixed[k], bounds, sb, cam, m, e["coarse"], e["iters"],
-                e["lr_factor"], draws, trained_decoders(m), r["N_samples"], r["N_surface"],
-                loss_scale=2.0 if half_batch else 1.0))
+            out["passes"].append(fam.map_pass(cfg, p, e, fixed[k], draws, device,
+                                              loss_scale=2.0 if half_batch else 1.0))
             out.setdefault("ba", []).append(e["ba"])
             out.setdefault("coarse", []).append(e["coarse"])
     return out
 
 
-def _groups(grids, decoders, cams, trained: List[str], ba: bool) -> Dict[tuple, torch.Tensor]:
-    """A pass's parameters as NICE-SLAM's optimiser groups them: each grid
-    level, the trained decoders of each level (one flat vector), the window
-    cameras under bundle adjustment."""
-    out = {("grids", k): v.detach() for k, v in grids.items()}
-    for lvl in trained:
-        out[("decoders", lvl)] = torch.cat([t.detach().reshape(-1) for _, t in
-                                            R.leaves(decoders[lvl])])
-    if ba:
-        out[("cams",)] = cams.detach()
-    return out
-
-
 def _first_by_group(first: Dict[tuple, float]) -> Dict[tuple, float]:
-    """The reference's first-gradient norms of :func:`_groups`' groups."""
+    """The reference's first-gradient norms of the family's groups: a
+    leaf's group is its key's first two entries."""
     out: Dict[tuple, float] = {}
     for key, norm in first.items():
         g = key[:2]
@@ -420,12 +387,12 @@ def _rel_rows(p: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return (p - r).abs() / r.abs().clamp(min=1e-12)
 
 
-def gaps(rec: Recorder, cfg: dict, ref: dict, program: Optional[dict] = None,
+def gaps(rec: Recorder, cfg: dict, fam, ref: dict, program: Optional[dict] = None,
          log=lambda *a: None) -> Dict[str, float]:
     """The compared numbers of the sampled answers: the program's (or, for
-    the control, ``program``: another reference's) against ``ref``."""
+    the control, ``program``: another reference's) against ``ref``; the
+    parameter groups are the family ``fam``'s."""
     out: Dict[str, float] = {}
-    trained = trained_decoders(cfg["mapping"])
     if rec.sampled_solves:
         lg = 0.0
         for k, (pose_r, loss_r) in enumerate(ref["solves"]):
@@ -452,10 +419,10 @@ def gaps(rec: Recorder, cfg: dict, ref: dict, program: Optional[dict] = None,
             lg = max(lg, float(rel[:LOSS_ROWS].max()))
             fg1 = max(fg1, float(rel[0]))
             ba, coarse = ref["ba"][k], ref["coarse"][k]
-            dev = g_r["middle"].device
-            start = _groups(p["grids"], p["decoders"], p["cams"], trained, ba)
-            new_r = _groups(g_r, d_r, c_r, trained, ba)
-            new_p = _groups(g_p, d_p, c_p, trained, ba)
+            start = fam.groups(p["grids"], p["decoders"], p["cams"], cfg, ba)
+            new_r = fam.groups(g_r, d_r, c_r, cfg, ba)
+            new_p = fam.groups(g_p, d_p, c_p, cfg, ba)
+            dev = next(iter(new_r.values())).device
             dr = {g: float(torch.linalg.norm((new_r[g].to(dev) - start[g].to(dev)).double()))
                   for g in start}
             dp = {g: float(torch.linalg.norm((new_p[g].to(dev) - start[g].to(dev)).double()))

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..reference.render import camera
-from . import check, costs, spec, stream, tracing
+from . import check, spec, stream, tracing
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "niceslam_tpu")
 HUGE = 10 ** 9
@@ -78,10 +78,10 @@ def _run(workload: str, seed: int, seconds: float, trace: bool, device, setup_t0
     bench = spec.load_benchmark()
     cell = spec.workload(bench, workload)
     conf = spec.config(bench, cell["config"])
+    fam = spec.config_family(conf)
     traffic = spec.traffic(cell["traffic"])
     slam_d = spec.with_overrides(conf["slam"], {**traffic.get("set", {}), **(sets or {})})
-    npz = str(spec.ROOT / slam_d["pretrained_middle_fine"])
-    cfg = spec.build(SLAMConfig, {**slam_d, "pretrained_middle_fine": npz})
+    cfg = spec.build(SLAMConfig, spec.with_overrides(slam_d, fam.files(slam_d, spec.ROOT)))
     m = cfg.mapping
 
     colors, depths, poses = stream.stage(camera(slam_d["cam"]), cfg.bound, traffic, device)
@@ -167,22 +167,23 @@ def _run(workload: str, seed: int, seconds: float, trace: bool, device, setup_t0
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers = {"start_gap": check.start_gap(slam_d, seed, grids0, dec0, npz),
-               "schedule_gap": check.schedule_gap(rec, slam_d, range(k0, k0 + n)),
+    numbers = {"start_gap": check.start_gap(slam_d, fam, seed, grids0, dec0, spec.ROOT),
+               "schedule_gap": check.schedule_gap(rec, slam_d, fam, range(k0, k0 + n)),
                "chain_gap": check.chain_gap(rec)}
     del grids0, dec0
-    numbers["window_gap"], fixed = check.window_gap(rec, slam_d, lambda j: (frame(j).color, frame(j).depth))
-    ref = check.reference_answers(rec, slam_d, device, fixed)
-    numbers.update(check.gaps(rec, slam_d, ref, log=log))
+    numbers["window_gap"], fixed = check.window_gap(rec, slam_d, fam,
+                                                    lambda j: (frame(j).color, frame(j).depth))
+    ref = check.reference_answers(rec, slam_d, fam, device, fixed)
+    numbers.update(check.gaps(rec, slam_d, fam, ref, log=log))
     control_numbers = None
     if control:
-        low = check.reference_answers(rec, slam_d, device, fixed, use_tf32=True)
-        control_numbers = check.gaps(rec, slam_d, ref, program=low,
+        low = check.reference_answers(rec, slam_d, fam, device, fixed, use_tf32=True)
+        control_numbers = check.gaps(rec, slam_d, fam, ref, program=low,
                                      log=lambda m: log(f"control {m}"))
     fault_numbers = None
     if fault:
-        half = check.reference_answers(rec, slam_d, device, fixed, half_batch=True)
-        fault_numbers = check.gaps(rec, slam_d, ref, program=half,
+        half = check.reference_answers(rec, slam_d, fam, device, fixed, half_batch=True)
+        fault_numbers = check.gaps(rec, slam_d, fam, ref, program=half,
                                    log=lambda m: log(f"half batch {m}"))
     log(f"check: {len(rec.sampled_solves)} solves and {len(rec.sampled_event)} passes "
         f"against the reference in {time.perf_counter() - t_check:.2f} s")
@@ -200,9 +201,9 @@ def _run(workload: str, seed: int, seconds: float, trace: bool, device, setup_t0
         for e in e2e:
             metrics[e["name"]] = {"value": values[e["name"]], "unit": e["unit"]}
     else:
-        ctx = SimpleNamespace(config=slam_d, window=win, trace=red, cycle=cycle, costs=costs,
-                              device=device, log=log,
-                              grid_bytes=costs.grid_bytes(slam_d),
+        ctx = SimpleNamespace(config=slam_d, window=win, trace=red, cycle=cycle,
+                              costs=fam.costs, device=device, log=log,
+                              grid_bytes=fam.costs.grid_bytes(slam_d),
                               device_name=(torch.cuda.get_device_name(device)
                                            if device.type == "cuda" else "cpu"))
         for e in spec.metrics_for(bench["per_layer"], workload):

@@ -1,6 +1,7 @@
 """Finding a cell's parts by name: ``BENCHMARK.json``'s entries, the
-configuration file, the traffic file, the cell's own file and the per-layer
-metric readers, each a file of its own under ``benchmark/``."""
+configuration file, the traffic file, the cell's own file, the per-layer
+metric readers and the model families, each a file of its own under
+``benchmark/``."""
 from __future__ import annotations
 
 import copy
@@ -12,6 +13,9 @@ from typing import Callable, Dict, List
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+FAMILIES = BENCH / "families"
+# The family of a configuration file without a ``family`` key.
+DEFAULT_FAMILY = "nice"
 
 
 def load_benchmark(path: Path = ROOT / "BENCHMARK.json") -> dict:
@@ -56,6 +60,27 @@ def metric_reader(name: str) -> Callable:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def family(name: str):
+    """The module ``benchmark/families/<name>.py``: what the check and the
+    yardstick need of one model family (``benchmark/families/__init__.py``
+    lists it). Raises ``KeyError`` naming the known families where there is
+    no such file."""
+    path = FAMILIES / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        known = sorted(p.stem for p in FAMILIES.glob("*.py") if p.stem != "__init__")
+        raise KeyError(f"no model family {name!r} in {FAMILIES}; known: {known}")
+    spec = importlib.util.spec_from_file_location(f"benchmark_family_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def config_family(conf: dict):
+    """The family that a configuration file names (``family``, beside
+    ``source`` and ``slam``), :data:`DEFAULT_FAMILY` where it names none."""
+    return family(conf.get("family", DEFAULT_FAMILY))
 
 
 def metrics_for(entries: List[dict], cell: str) -> List[dict]:

@@ -114,9 +114,11 @@ def _skipped_events(monkeypatch):
 @pytest.mark.parametrize("fault,workload", [
     (_unchanged_pass, "replica.mapping"), (_unchanged_pass, "scannet.slam"),
     (_half_batch, "replica.mapping"), (_half_batch, "scannet.slam"),
-    (_half_batch_tracker, "scannet.slam"),
+    (_half_batch_tracker, "scannet.slam"), (_half_batch_tracker, "replica.slam"),
     (_altered_map, "replica.mapping"), (_altered_map, "scannet.slam"),
+    (_altered_map, "replica.slam"),
     (_dropped_commit, "replica.mapping"), (_dropped_commit, "scannet.slam"),
+    (_dropped_commit, "replica.slam"),
     (_halved_iters, "replica.mapping"), (_skipped_events, "replica.mapping"),
 ])
 def test_bench_fault_is_caught(tiny_run, monkeypatch, fault, workload):

@@ -9,7 +9,7 @@ from benchmark.harness import spec
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
-@pytest.mark.parametrize("workload", ["scannet.slam", "replica.mapping"])
+@pytest.mark.parametrize("workload", ["scannet.slam", "replica.mapping", "replica.slam"])
 @pytest.mark.parametrize("trace", [False, True])
 def test_bench_line_keys(tiny_run, workload, trace):
     line = tiny_run(workload, trace=trace)
